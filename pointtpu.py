@@ -2,6 +2,6 @@
 
 import sys
 
-import adversarial_learning_on_pointclouds_tpu as _pkg
+import adversarial_learning_on_pointclouds as _pkg
 
 sys.modules[__name__] = _pkg

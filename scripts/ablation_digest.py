@@ -2,7 +2,7 @@
 """Re-render the paired-delta tables from ABLATION_*.json artifacts.
 
 Every ablation sweep (`ablation_adversarial_gain.py`) writes a JSON
-artifact with per-run results; this digest reproduces the BASELINE.md
+artifact with per-run results; this digest reproduces the paired-delta
 tables from those artifacts (so recorded numbers are auditable), and
 can merge several artifacts that share a protocol (e.g. the main sweep
 plus a `--semi_start` variant) into one table keyed by an extra label.

@@ -4,7 +4,9 @@ synthetic ShapeNet fixture, timed wall-clock (VERDICT round 1, next-round
 #3 — the adversarial counterpart of the classification 222 s demo).
 
 Measures epochs/sec and points/sec/chip INCLUDING the host input pipeline,
-unlike bench.py's device-resident kernel-throughput metric.
+unlike bench.py's device-resident kernel-throughput metric. Runs on the
+GPU (exits nonzero without one); the fixture is written as HDF5, so it
+needs ``h5py`` (``pip install .[h5]``).
 """
 
 import argparse
@@ -36,21 +38,22 @@ def main():
     p.add_argument("--outf", type=str, default="")
     args = p.parse_args()
 
-    import jax
-
-    from adversarial_learning_on_pointclouds_tpu.utils.compile_cache import (
+    from adversarial_learning_on_pointclouds.utils import device
+    from adversarial_learning_on_pointclouds.utils.compile_cache import (
         enable_persistent_cache,
     )
 
+    devices = device.require_gpu("e2e_adversarial_record.py")
+
     enable_persistent_cache()
 
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.data import (
+    from adversarial_learning_on_pointclouds.data import (
         make_synthetic_shapenet,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     root = os.path.join(tempfile.gettempdir(),
                         f"pointtpu_e2e_sn_{args.shapes}x{args.points}")
@@ -73,7 +76,7 @@ def main():
     wall = time.perf_counter() - t0
     steps = spe * args.epochs
     pts = 2 * args.batch * args.points * steps
-    n_chips = len(jax.devices())
+    n_chips = len(devices)
     print(json.dumps({
         "metric": "adversarial_e2e_epoch_throughput",
         "shapes": args.shapes, "points": args.points, "batch": args.batch,
@@ -82,6 +85,8 @@ def main():
         "wall_s": round(wall, 1),
         "epochs_per_sec": round(args.epochs / wall, 4),
         "points_per_sec_per_chip_incl_host": round(pts / wall / n_chips, 1),
+        "device": device.device_record(devices),
+        "card": device.card_line(),
         "best_miou": round(float(result["best_miou"]), 4),
     }))
 

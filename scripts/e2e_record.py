@@ -5,7 +5,9 @@ configs 1-2 (classification), 3 (segmentation), and 5 (FGSM adversarial
 perturbation): the FULL runner — index streams, on-device gather +
 augment chain, jitted steps (``--scan K`` fused launches), per-epoch
 compiled eval scan, async checkpoints — on a large synthetic fixture,
-timed wall-clock including the host pipeline and first-compile.
+timed wall-clock including the host pipeline and first-compile, on
+the GPU (exits nonzero without one). The fixtures are written as HDF5,
+so these records need ``h5py`` (``pip install .[h5]``).
 Steady-state per-epoch costs come from the logged train_s/eval_s/ckpt_s.
 """
 
@@ -32,21 +34,22 @@ def main():
     p.add_argument("--outf", type=str, default="")
     args = p.parse_args()
 
-    import jax
-
-    from adversarial_learning_on_pointclouds_tpu.utils.compile_cache import (
+    from adversarial_learning_on_pointclouds.utils import device
+    from adversarial_learning_on_pointclouds.utils.compile_cache import (
         enable_persistent_cache,
     )
 
+    devices = device.require_gpu("e2e_record.py")
+
     enable_persistent_cache()
 
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdvPerturbConfig, ClassifyConfig, SegmentConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.data import (
+    from adversarial_learning_on_pointclouds.data import (
         make_synthetic_modelnet_h5, make_synthetic_shapenet,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     tmp = tempfile.gettempdir()
     out = args.outf or os.path.join(tmp, f"pointtpu_e2e_{args.config}")
@@ -82,7 +85,7 @@ def main():
     result = run(cfg)
     wall = time.perf_counter() - t0
     pts = args.batch * args.points * spe * args.epochs
-    n_chips = len(jax.devices())
+    n_chips = len(devices)
     print(json.dumps({
         "metric": f"{args.config}_e2e_epoch_throughput",
         "shapes": args.shapes, "points": args.points, "batch": args.batch,
@@ -90,6 +93,8 @@ def main():
         "wall_s": round(wall, 1),
         "epochs_per_sec": round(args.epochs / wall, 4),
         "points_per_sec_per_chip_incl_host": round(pts / wall / n_chips, 1),
+        "device": device.device_record(devices),
+        "card": device.card_line(),
         "best": round(float(result[key]), 4),
     }))
 

@@ -23,18 +23,13 @@ def main():
     p.add_argument("--num_points", type=int, default=1024)
     p.add_argument("--feature_transform", action="store_true")
     p.add_argument("--no_pallas", action="store_true")
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        add_cpu_flag, apply_cpu_flag,
-    )
-    add_cpu_flag(p)
     a = p.parse_args()
-    apply_cpu_flag(a)
 
-    from adversarial_learning_on_pointclouds_tpu import eval as eval_lib
-    from adversarial_learning_on_pointclouds_tpu.configs import ClassifyConfig
-    from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
-    from adversarial_learning_on_pointclouds_tpu.train import classify, runner
-    from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+    from adversarial_learning_on_pointclouds import eval as eval_lib
+    from adversarial_learning_on_pointclouds.configs import ClassifyConfig
+    from adversarial_learning_on_pointclouds.ops import use_pallas
+    from adversarial_learning_on_pointclouds.train import classify, runner
+    from adversarial_learning_on_pointclouds.utils import checkpoint
 
     cfg = ClassifyConfig(batch_size=a.batchSize, num_points=a.num_points,
                          dataset=a.dataset,
@@ -42,7 +37,7 @@ def main():
     _, _, x_te, y_te = runner._modelnet_arrays(cfg, eval_split=a.split)
     state = classify.create_state(cfg, steps_per_epoch=1)
     # load_params_only: eval needs params+BN only, and it accepts both
-    # orbax dirs and reference .pth files.
+    # checkpoint dirs and reference .pth files.
     state = checkpoint.load_params_only(a.model, state)
     with use_pallas(not a.no_pallas):
         ev = eval_lib.evaluate_classifier(

@@ -27,12 +27,7 @@ def main():
                    default=[0.0, 0.01, 0.025, 0.05, 0.1])
     p.add_argument("--pgd_steps", type=int, default=0,
                    help="0 = single-step FGSM; >0 = PGD with that many steps")
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        add_cpu_flag, apply_cpu_flag,
-    )
-    add_cpu_flag(p)
     a = p.parse_args()
-    apply_cpu_flag(a)
 
     import functools
 
@@ -40,14 +35,14 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from adversarial_learning_on_pointclouds_tpu import attacks, losses
-    from adversarial_learning_on_pointclouds_tpu.configs import ClassifyConfig
-    from adversarial_learning_on_pointclouds_tpu.data.loader import (
+    from adversarial_learning_on_pointclouds import attacks, losses
+    from adversarial_learning_on_pointclouds.configs import ClassifyConfig
+    from adversarial_learning_on_pointclouds.data.loader import (
         batch_iterator,
     )
-    from adversarial_learning_on_pointclouds_tpu.models import apply_classifier
-    from adversarial_learning_on_pointclouds_tpu.train import classify, runner
-    from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+    from adversarial_learning_on_pointclouds.models import apply_classifier
+    from adversarial_learning_on_pointclouds.train import classify, runner
+    from adversarial_learning_on_pointclouds.utils import checkpoint
 
     cfg = ClassifyConfig(batch_size=a.batchSize, num_points=a.num_points,
                          dataset=a.dataset,
@@ -55,7 +50,7 @@ def main():
     _, _, x_te, y_te = runner._modelnet_arrays(cfg, eval_split=a.split)
     state = classify.create_state(cfg, steps_per_epoch=1)
     # load_params_only: eval needs params+BN only, and it accepts both
-    # orbax dirs and reference .pth files.
+    # checkpoint dirs and reference .pth files.
     state = checkpoint.load_params_only(a.model, state)
     params, bn_state = state.params, state.bn_state
 

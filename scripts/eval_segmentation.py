@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CLI mirror of the reference's segmentation eval (``show_seg``-style):
 loads a checkpoint, reports instance mIoU + per-category table, and can
-export colored ``.ply`` point clouds (the TPU-friendly replacement for
+export colored ``.ply`` point clouds (the headless replacement for
 the lineage's OpenGL viewer; SURVEY.md §2.10 "Visualization")."""
 
 import argparse
@@ -29,22 +29,17 @@ def main():
                    help="write the first batch's predictions here as .ply")
     p.add_argument("--adversarial", action="store_true",
                    help="checkpoint is a GAN state (config 4)")
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        add_cpu_flag, apply_cpu_flag,
-    )
-    add_cpu_flag(p)
     a = p.parse_args()
-    apply_cpu_flag(a)
 
-    from adversarial_learning_on_pointclouds_tpu import eval as eval_lib
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds import eval as eval_lib
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig, SegmentConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
-    from adversarial_learning_on_pointclouds_tpu.train import (
+    from adversarial_learning_on_pointclouds.ops import use_pallas
+    from adversarial_learning_on_pointclouds.train import (
         adversarial, runner, segment,
     )
-    from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+    from adversarial_learning_on_pointclouds.utils import checkpoint
 
     if a.adversarial:
         cfg = AdversarialConfig(batch_size=a.batchSize,
@@ -65,7 +60,7 @@ def main():
                             dataset=a.dataset, class_choice=a.class_choice)
         state = segment.create_state(cfg, steps_per_epoch=1)
         # load_params_only: eval needs params+BN only, and it accepts both
-        # orbax dirs and reference .pth files.
+        # checkpoint dirs and reference .pth files.
         state = checkpoint.load_params_only(a.model, state)
         params, bn_state = state.params, state.bn_state
 
@@ -81,8 +76,8 @@ def main():
     if a.export_ply:
         import numpy as np
 
-        from adversarial_learning_on_pointclouds_tpu.train import segment as seg
-        from adversarial_learning_on_pointclouds_tpu.utils.ply import (
+        from adversarial_learning_on_pointclouds.train import segment as seg
+        from adversarial_learning_on_pointclouds.utils.ply import (
             write_ply_with_labels,
         )
         out = seg.eval_step(params, bn_state, x_te[:4], s_te[:4], c_te[:4])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Export a framework checkpoint as a reference-format ``.pth``.
 
-Migration back to the reference repo: translate an orbax checkpoint's
+Migration back to the reference repo: translate a checkpoint's
 params/BN state into a ``state_dict`` with the reference module names
 (``utils/torch_export.py``) that ``model.load_state_dict(...,
 strict=True)`` accepts.
@@ -25,20 +25,15 @@ def main():
     p.add_argument("--num_classes", type=int, default=40)
     p.add_argument("--num_parts", type=int, default=50)
     p.add_argument("--feature_transform", action="store_true")
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        add_cpu_flag, apply_cpu_flag,
-    )
-    add_cpu_flag(p)
     a = p.parse_args()
-    apply_cpu_flag(a)
 
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig, ClassifyConfig, SegmentConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import (
+    from adversarial_learning_on_pointclouds.train import (
         adversarial, classify, segment,
     )
-    from adversarial_learning_on_pointclouds_tpu.utils import (
+    from adversarial_learning_on_pointclouds.utils import (
         checkpoint, torch_export,
     )
 

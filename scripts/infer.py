@@ -31,7 +31,7 @@ def _load_clouds(path: str) -> np.ndarray:
         with h5py.File(path, "r") as f:
             return np.asarray(f["data"][:], np.float32)
     if ext == ".ply":
-        from adversarial_learning_on_pointclouds_tpu.utils.ply import read_ply
+        from adversarial_learning_on_pointclouds.utils.ply import read_ply
         return read_ply(path)[None]
     return np.loadtxt(path, dtype=np.float32).reshape(1, -1, 3)
 
@@ -40,7 +40,7 @@ def _prep(clouds: np.ndarray, num_points: int, seed: int = 0) -> np.ndarray:
     """Unit-sphere normalize + resample each cloud to ``num_points`` —
     the training-side eval contract (``augment.normalize_unit_sphere_np``
     math, reference ``dataset.py::__getitem__`` resample)."""
-    from adversarial_learning_on_pointclouds_tpu.data.augment import (
+    from adversarial_learning_on_pointclouds.data.augment import (
         normalize_unit_sphere_np,
     )
     rng = np.random.default_rng(seed)
@@ -76,18 +76,13 @@ def main():
                    help="write the FIRST cloud's part labels as a "
                         "colored .ply (segmentation only)")
     p.add_argument("--no_pallas", action="store_true")
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        add_cpu_flag, apply_cpu_flag,
-    )
-    add_cpu_flag(p)
     a = p.parse_args()
-    apply_cpu_flag(a)
     if not a.artifact and not a.checkpoint:
         p.error("need --artifact or --checkpoint")
 
     pinned_b = None
     if a.artifact:
-        from adversarial_learning_on_pointclouds_tpu.utils import serving
+        from adversarial_learning_on_pointclouds.utils import serving
         exp = serving.load_exported(a.artifact)
         art_n = exp.in_avals[0].shape[1]
         if a.num_points and a.num_points != art_n:
@@ -107,19 +102,19 @@ def main():
         kind = a.kind or ("seg" if len(exp.out_avals[0].shape) == 3
                           else "cls")
     else:
-        from adversarial_learning_on_pointclouds_tpu.configs import (
+        from adversarial_learning_on_pointclouds.configs import (
             AdversarialConfig, ClassifyConfig, SegmentConfig,
         )
-        from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
-        from adversarial_learning_on_pointclouds_tpu.train import (
+        from adversarial_learning_on_pointclouds.ops import use_pallas
+        from adversarial_learning_on_pointclouds.train import (
             adversarial, classify, segment,
         )
-        from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+        from adversarial_learning_on_pointclouds.utils import checkpoint
         kind = "cls" if a.model == "cls" else "seg"
         npts = a.num_points or (1024 if kind == "cls" else 2500)
         is_pth = a.checkpoint.endswith(".pth")
         if a.model == "cls":
-            from adversarial_learning_on_pointclouds_tpu.models.classifier \
+            from adversarial_learning_on_pointclouds.models.classifier \
                 import apply_classifier as apply
             cfg = ClassifyConfig(num_points=npts, num_classes=a.num_classes,
                                  feature_transform=a.feature_transform)
@@ -128,7 +123,7 @@ def main():
                   if is_pth else checkpoint.restore(a.checkpoint, tmpl))
             params, bn = st.params, st.bn_state
         else:
-            from adversarial_learning_on_pointclouds_tpu.models.segmenter \
+            from adversarial_learning_on_pointclouds.models.segmenter \
                 import apply_segmenter as apply
             if a.model == "seg":
                 cfg = SegmentConfig(num_points=npts, num_parts=a.num_parts,
@@ -145,7 +140,7 @@ def main():
                     # G weights only — a reference adversarial run saves
                     # G and D as separate .pth files and inference never
                     # touches D (so a --d_geometry companion can't block
-                    # the load, same rationale as the orbax branch); the
+                    # the load, same rationale as the checkpoint branch); the
                     # generator trees ARE template-checked.
                     params, bn = checkpoint.load_pth_generator(
                         a.checkpoint, adversarial.create_state(cfg, 1))
@@ -160,7 +155,7 @@ def main():
                     params, bn = sub["g_params"], sub["g_bn_state"]
         import jax
 
-        from adversarial_learning_on_pointclouds_tpu.ops import dispatch
+        from adversarial_learning_on_pointclouds.ops import dispatch
 
         paths = None
         with use_pallas(not a.no_pallas):
@@ -196,7 +191,7 @@ def main():
                                 np.sort(cnt)[::-1][:4]))
             print(f"cloud {i}: parts {{{top}}}")
         if a.ply:
-            from adversarial_learning_on_pointclouds_tpu.utils.ply import (
+            from adversarial_learning_on_pointclouds.utils.ply import (
                 write_ply_with_labels,
             )
             write_ply_with_labels(a.ply, clouds[0], pred[0])

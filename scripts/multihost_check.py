@@ -5,7 +5,8 @@
 real multi-host execution (SURVEY.md §2.8, ROADMAP #6): it spawns TWO
 OS processes, each owning 4 CPU devices, connects them with
 ``jax.distributed.initialize`` (gRPC coordinator + Gloo collectives — the
-CPU stand-in for DCN), builds the ``('dcn', 'ici')`` mesh over the 8
+CPU stand-in for the network between hosts), builds the
+``('host', 'local')`` mesh over the 8
 GLOBAL devices, and runs the full adversarial G+D jitted step with the
 batch sharded across both processes (``jax.make_array_from_process_local_
 data`` — each process contributes only its local rows, like a real
@@ -47,16 +48,16 @@ def worker(pid: int, port: int) -> None:
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.parallel import (
+    from adversarial_learning_on_pointclouds.parallel import (
         make_multihost_mesh,
     )
-    from adversarial_learning_on_pointclouds_tpu.parallel.mesh import (
+    from adversarial_learning_on_pointclouds.parallel.mesh import (
         batch_sharding, replicate_tree,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     cfg = AdversarialConfig(num_parts=50, batch_size=B, num_points=N,
                             feature_transform=False, augment=False)
@@ -74,7 +75,7 @@ def worker(pid: int, port: int) -> None:
                                    cfg=cfg, g_tx=g_tx, d_tx=d_tx)
     ref = {k: float(v) for k, v in m1.items()}
 
-    # Distributed: ('dcn','ici') mesh over the 8 global devices; each
+    # Distributed: ('host','local') mesh over the 8 global devices; each
     # process feeds ONLY its local batch rows (rows are laid out
     # host-major, so process pid owns rows [pid*B/2, (pid+1)*B/2)).
     mesh = make_multihost_mesh(NUM_PROCS, LOCAL_DEVICES)
@@ -104,7 +105,7 @@ def worker(pid: int, port: int) -> None:
     shards = [np.asarray(s.data) for s in leaf.addressable_shards]
     for s in shards[1:]:
         np.testing.assert_array_equal(shards[0], s)
-    print(f"proc {pid}: OK 2-proc x {LOCAL_DEVICES}-dev ('dcn','ici') "
+    print(f"proc {pid}: OK 2-proc x {LOCAL_DEVICES}-dev ('host','local') "
           f"G+D step == single-device, worst rel={worst:.2e}", flush=True)
 
 

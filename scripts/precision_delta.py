@@ -2,7 +2,7 @@
 """bf16-vs-fp32 accuracy delta on the flagship config (VERDICT r2 weak #7).
 
 The bench headline rides bf16 mixed precision (fp32 accumulation/BN/
-reductions, bf16 MXU operands) while the strict torch-parity numerics are
+reductions, bf16 matmul operands) while the strict torch-parity numerics are
 fp32 HIGHEST; the round-2 verdict asks that any accuracy-parity claim
 state its precision mode and quantify the delta. Real datasets are not in
 this environment, so this measures the delta end-to-end on the learnable
@@ -11,7 +11,7 @@ protocol as the adversarial-gain ablation): config-4 adv+semi at
 labeled_ratio 0.5, N seeds, bf16 vs fp32, best-epoch instance mIoU on the
 held-out split through the REAL runner.
 
-Usage (defaults reproduce the BASELINE.md table):
+Usage:
     python scripts/precision_delta.py --seeds 3 --nepoch 100
 """
 
@@ -43,13 +43,13 @@ def main():
 
     import numpy as np
 
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         make_synthetic_shapenet,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     # Keyed on shapes AND points: the cached-fixture guard would
     # otherwise silently reuse a fixture generated at a different

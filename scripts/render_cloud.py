@@ -3,7 +3,7 @@
 
 The reference lineage ships an interactive OpenGL viewer
 (``upstream:utils/show3d_balls.py`` family — declared out of scope for a
-headless TPU environment in SURVEY.md §2.10); this is its offline
+headless environment in SURVEY.md §2.10); this is its offline
 equivalent: scatter-render ``.ply`` exports (``utils/ply.py``), raw
 ``.pts`` files, or shapes out of a dataset root, colored by part label
 when labels are present.
@@ -51,25 +51,20 @@ def main():
     p.add_argument("--out", type=str, required=True)
     p.add_argument("--elev", type=float, default=20.0)
     p.add_argument("--azim", type=float, default=-60.0)
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        add_cpu_flag, apply_cpu_flag,
-    )
-    add_cpu_flag(p)
     a = p.parse_args()
-    apply_cpu_flag(a)
 
     import numpy as np
 
     labels = None
     if a.ply:
-        from adversarial_learning_on_pointclouds_tpu.utils import ply
+        from adversarial_learning_on_pointclouds.utils import ply
         points = ply.read_ply(a.ply)  # xyz; label colors baked in the file
     elif a.pts:
         points = np.loadtxt(a.pts, dtype=np.float32).reshape(-1, 3)
         if a.seg:
             labels = np.loadtxt(a.seg, dtype=np.int32)
     else:
-        from adversarial_learning_on_pointclouds_tpu.data import ShapeNetPart
+        from adversarial_learning_on_pointclouds.data import ShapeNetPart
         ds = ShapeNetPart(a.dataset, "train")
         points, labels, _ = ds[a.index]
     _render(np.asarray(points), labels, a.out, a.elev, a.azim)

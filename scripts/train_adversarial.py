@@ -8,10 +8,10 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     adversarial_config_from_args,
 )
-from adversarial_learning_on_pointclouds_tpu.train import runner
+from adversarial_learning_on_pointclouds.train import runner
 
 
 def main():

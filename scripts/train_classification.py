@@ -3,7 +3,7 @@
 
 Same public flag surface (``--batchSize --num_points --nepoch --outf
 --model --dataset --feature_transform --manualSeed``; SURVEY.md §2.10) on
-the TPU-native trainer. With no ``--dataset``, trains on synthetic
+the JAX trainer. With no ``--dataset``, trains on synthetic
 fixtures with the real ModelNet40 HDF5 schema.
 """
 
@@ -12,10 +12,10 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     classify_config_from_args,
 )
-from adversarial_learning_on_pointclouds_tpu.train import runner
+from adversarial_learning_on_pointclouds.train import runner
 
 
 def main():

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from adversarial_learning_on_pointclouds_tpu.data import augment
+from adversarial_learning_on_pointclouds.data import augment
 
 B, N = 4, 64
 

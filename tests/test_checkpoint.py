@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     AdversarialConfig, ClassifyConfig,
 )
-from adversarial_learning_on_pointclouds_tpu.train import adversarial, classify
-from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+from adversarial_learning_on_pointclouds.train import adversarial, classify
+from adversarial_learning_on_pointclouds.utils import checkpoint
 
 B, N = 4, 64
 
@@ -102,3 +102,48 @@ def test_async_saver_roundtrip_and_error_propagation(tmp_path):
     saver.save(str(tmp_path / "f\x00bad"), 0, state)  # invalid path
     with np.testing.assert_raises(Exception):
         saver.close()
+
+
+# ---------------------------------------------------------------------------
+# The .npz format: flattened leaves + key paths, checked against a template
+# ---------------------------------------------------------------------------
+
+def test_npz_layout_holds_leaves_and_paths(tmp_path):
+    tree = {"a": np.arange(3, dtype=np.float32),
+            "b": {"c": np.ones((2, 2), np.int32)}}
+    path = checkpoint.save(str(tmp_path), 7, tree)
+    with np.load(f"{path}/state.npz") as z:
+        assert [str(p) for p in z["__paths__"]] == ["['a']", "['b']['c']"]
+        np.testing.assert_array_equal(z["leaf_1"], tree["b"]["c"])
+    back = checkpoint.restore(str(tmp_path), tree)
+    assert _tree_equal(back, tree)
+    assert back["b"]["c"].dtype == jnp.int32
+
+
+def test_restore_rejects_treedef_mismatch(tmp_path):
+    """A checkpoint of another architecture fails with a readable error
+    naming the mismatched paths, not a shape error at apply time."""
+    import pytest
+
+    z = lambda n: np.zeros(n, np.float32)  # noqa: E731
+    checkpoint.save(str(tmp_path), 0, {"w": z(3), "b": z(2)})
+    with pytest.raises(ValueError, match="missing"):
+        checkpoint.restore(str(tmp_path), {"w": z(3), "extra": z(1)})
+    with pytest.raises(ValueError, match="shape"):
+        checkpoint.restore(str(tmp_path), {"w": z(4), "b": z(2)})
+
+
+def test_restore_fields_ignores_other_subtrees(tmp_path):
+    """Generator-only restore works when the D subtree of the checkpoint
+    differs from the template's (e.g. a wider ``--d_geometry`` input)."""
+    cfg = AdversarialConfig(num_parts=4, batch_size=B, num_points=N,
+                            feature_transform=False, d_geometry=True)
+    saved = adversarial.create_state(cfg, 1)
+    checkpoint.save(str(tmp_path), 1, saved)
+    template = adversarial.create_state(
+        AdversarialConfig(num_parts=4, batch_size=B, num_points=N,
+                          feature_transform=False), 1)
+    got = checkpoint.restore_fields(str(tmp_path), template,
+                                    ["g_params", "g_bn_state"])
+    assert _tree_equal(got["g_params"], saved.g_params)
+    assert _tree_equal(got["g_bn_state"], saved.g_bn_state)

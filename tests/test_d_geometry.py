@@ -1,7 +1,7 @@
 """--d_geometry: the geometry-aware discriminator EXTENSION.
 
 The reference's pointwise D judges per-point class probabilities only
-(BASELINE.md adversarial-gain analysis: its prior reduces to marginal
+(docs/ADVERSARIAL_GAIN.md: its prior reduces to marginal
 shape). The extension appends the augmented xyz coordinates to the D
 input so it can judge label-geometry consistency. These tests pin: the
 widened D architecture, coordinates actually reaching the D (same probs
@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu.configs import AdversarialConfig
-from adversarial_learning_on_pointclouds_tpu.train import adversarial
+from adversarial_learning_on_pointclouds.configs import AdversarialConfig
+from adversarial_learning_on_pointclouds.train import adversarial
 
 B, N, P = 8, 64, 6
 
@@ -50,9 +50,9 @@ def test_d_geometry_coordinates_reach_the_d():
     xyz_a = jnp.asarray(rng.standard_normal((B, N, 3)), jnp.float32)
     xyz_b = xyz_a + 1.0
     la = float(adversarial._d_loss_fn(st.d_params, probs, probs, y, P,
-                                      None, (xyz_a, xyz_a))[0])
+                                      (xyz_a, xyz_a))[0])
     lb = float(adversarial._d_loss_fn(st.d_params, probs, probs, y, P,
-                                      None, (xyz_b, xyz_b))[0])
+                                      (xyz_b, xyz_b))[0])
     assert la != pytest.approx(lb, abs=1e-6)
 
 
@@ -82,18 +82,16 @@ def test_d_in_off_is_identity():
 
 def test_d_geometry_step_trains_under_pallas_dispatch():
     """The widened D input (C = parts+3 = 9 here, 53 at reference size)
-    must flow through the fused discriminator kernels too — apply_frozen
-    in the G step, known-logits + detached variants in the D step
-    (interpreter mode on CPU; the compiled twin lives in the -m tpu
-    suite)."""
-    from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
+    trains on the kernel route too (the trunk-exit kernel in interpreter
+    mode on CPU; chip_smoke.py runs the compiled route)."""
+    from adversarial_learning_on_pointclouds.ops import use_pallas
 
     cfg = AdversarialConfig(num_parts=P, batch_size=B, num_points=N,
                             feature_transform=True, d_geometry=True)
     g_tx, d_tx = adversarial.make_txs(cfg, 2)
     st = adversarial.create_state(cfg, 2)
     x_l, y_l, x_u = _batch(2)
-    with use_pallas(True):
+    with use_pallas(True, interpret=True):
         st, m = adversarial.train_step(st, x_l, y_l, x_u, cfg=cfg,
                                        g_tx=g_tx, d_tx=d_tx)
         st, m = adversarial.train_step(st, x_l, y_l, x_u, cfg=cfg,
@@ -103,9 +101,9 @@ def test_d_geometry_step_trains_under_pallas_dispatch():
 
 
 def test_d_geometry_pallas_matches_xla_loss():
-    """Same step, Pallas vs XLA dispatch: the G loss must agree at the
-    fp-reassociation floor with the widened D input."""
-    from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
+    """Same step, kernel route vs plain route: the losses must agree at
+    the fp-reassociation floor with the widened D input."""
+    from adversarial_learning_on_pointclouds.ops import use_pallas
 
     cfg = AdversarialConfig(num_parts=P, batch_size=B, num_points=N,
                             feature_transform=False, augment=False,
@@ -117,7 +115,7 @@ def test_d_geometry_pallas_matches_xla_loss():
     with use_pallas(False):
         _, m0 = adversarial.train_step(st, x_l, y_l, x_u, cfg=cfg,
                                        g_tx=g_tx, d_tx=d_tx)
-    with use_pallas(True):
+    with use_pallas(True, interpret=True):
         _, m1 = adversarial.train_step(st, x_l, y_l, x_u, cfg=cfg,
                                        g_tx=g_tx, d_tx=d_tx)
     for k in ("loss_g", "loss_d", "loss_ce"):

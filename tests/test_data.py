@@ -3,12 +3,13 @@
 import os
 
 import numpy as np
+import pytest
 
-from adversarial_learning_on_pointclouds_tpu.data import (
-    ModelNet40, ShapeNetPart, batch_iterator,
+from adversarial_learning_on_pointclouds.data import (
+    ModelNet40, ShapeNetPart, batch_iterator, make_synthetic_shapenet,
 )
-from adversarial_learning_on_pointclouds_tpu.data.loader import num_batches
-from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+from adversarial_learning_on_pointclouds.data.loader import num_batches
+from adversarial_learning_on_pointclouds.data.shapenet_part import (
     CATEGORY_PART_RANGES, SEG_CLASSES,
 )
 
@@ -56,7 +57,7 @@ def test_seg_classes_table_is_partition():
 def test_shapenet_class_choice(shapenet_root):
     full = ShapeNetPart(shapenet_root, "train")
     cats = set(int(c) for c in full.category)
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         CATEGORY_NAMES,
     )
     pick = CATEGORY_NAMES[next(iter(cats))]
@@ -101,7 +102,7 @@ def test_shapenet_pts_layout_native_loader(tmp_path):
     """The per-shape .pts/.seg layout through the native C++ loader:
     schema, category-range correctness, determinism, h5-parity of label
     semantics."""
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         make_synthetic_shapenet,
     )
     root = make_synthetic_shapenet(str(tmp_path / "pts"), num_shapes=24,
@@ -126,7 +127,7 @@ def test_shapenet_pts_layout_native_loader(tmp_path):
 
 
 def test_shapenet_pts_class_choice(tmp_path):
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         CATEGORY_NAMES, make_synthetic_shapenet,
     )
     root = make_synthetic_shapenet(str(tmp_path / "pts2"), num_shapes=32,
@@ -144,7 +145,7 @@ def test_host_index_iterator_matches_batch_stream():
     """host_index_iterator yields the SAME permutation stream as
     host_batch_iterator (the device-data path's contract: gathering
     pool[idx] on device must see the rows the host path would send)."""
-    from adversarial_learning_on_pointclouds_tpu.data.loader import (
+    from adversarial_learning_on_pointclouds.data.loader import (
         cycling_host_batches, cycling_host_indices, host_batch_iterator,
         host_index_iterator,
     )
@@ -170,7 +171,7 @@ def test_host_index_iterator_masked_padding():
     """drop_last=False yields (idx, mask) pairs — pad rows are index 0
     but masked out, so a consumer can't confuse them with genuine row 0;
     the batch iterator's padded+mask protocol composes from this."""
-    from adversarial_learning_on_pointclouds_tpu.data.loader import (
+    from adversarial_learning_on_pointclouds.data.loader import (
         host_batch_iterator, host_index_iterator,
     )
 
@@ -196,7 +197,7 @@ def test_synthetic_shapenet_boundary_jitter(tmp_path):
     minority of points flip (boundary-local)."""
     import h5py
 
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         make_synthetic_shapenet,
     )
 
@@ -230,7 +231,7 @@ def test_synthetic_shapenet_cluster_parts(tmp_path):
     shape-specific (same-category shapes place part centroids apart)."""
     import h5py
 
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         CATEGORY_PART_RANGES, make_synthetic_shapenet,
     )
 
@@ -265,3 +266,40 @@ def test_synthetic_shapenet_cluster_parts(tmp_path):
     pid0 = CATEGORY_PART_RANGES[l[a], 0]
     shift = np.linalg.norm(cents_by_shape[a][pid0] - cents_by_shape[b][pid0])
     assert shift > 0.02, shift
+
+
+# ---------------------------------------------------------------------------
+# In-memory fixtures: the same arrays the on-disk fixtures hold
+# ---------------------------------------------------------------------------
+
+def test_synthetic_modelnet_arrays_match_h5_fixture(tmp_path):
+    from adversarial_learning_on_pointclouds.data import (
+        ModelNet40, make_synthetic_modelnet_h5, synthetic_modelnet_arrays,
+    )
+
+    root = make_synthetic_modelnet_h5(str(tmp_path), 10, 6, 32, seed=3)
+    train, test = synthetic_modelnet_arrays(10, 6, 32, seed=3)
+    for mem, split in ((train, "train"), (test, "test")):
+        disk = ModelNet40(root, split)
+        np.testing.assert_array_equal(mem.points, disk.points)
+        np.testing.assert_array_equal(mem.labels, disk.labels)
+
+
+@pytest.mark.parametrize("layout", ["h5", "pts"])
+def test_synthetic_shapenet_matches_written_fixture(tmp_path, layout):
+    from adversarial_learning_on_pointclouds.data import synthetic_shapenet
+
+    root = make_synthetic_shapenet(str(tmp_path), num_shapes=16,
+                                   num_points=24, seed=5, layout=layout)
+    mem = synthetic_shapenet(num_shapes=16, num_points=24, seed=5)
+    for split in ("train", "test"):
+        disk = ShapeNetPart(root, split)
+        np.testing.assert_array_equal(mem[split].category, disk.category)
+        pts, seg, _ = disk.as_arrays(24)
+        if layout == "h5":   # exact arrays; pts text is rounded to 1e-6
+            np.testing.assert_array_equal(mem[split].points, pts)
+            np.testing.assert_array_equal(mem[split].part_labels, seg)
+        else:                # the native loader resamples the point order
+            assert pts.shape == mem[split].points.shape
+            assert set(np.unique(seg)) <= set(np.unique(
+                mem[split].part_labels))

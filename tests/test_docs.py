@@ -10,7 +10,7 @@ import os
 import re
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = "adversarial_learning_on_pointclouds_tpu"
+PKG = "adversarial_learning_on_pointclouds"
 
 # (module, attribute) pairs the doc names, one-plus per section.
 DOCUMENTED = [
@@ -19,7 +19,7 @@ DOCUMENTED = [
     (f"{PKG}.models", "apply_encoder_parts"),
     (f"{PKG}.models", "apply_classifier"),
     (f"{PKG}.models", "apply_segmenter_pair"),
-    (f"{PKG}.models", "apply_discriminator_fused"),
+    (f"{PKG}.models", "apply_discriminator"),
     (f"{PKG}.models.core", "batch_norm_grouped"),
     (f"{PKG}.models.core", "mixed_precision"),
     (f"{PKG}.losses", "nll_loss"),
@@ -61,6 +61,11 @@ DOCUMENTED = [
     (f"{PKG}.utils.profiling", "maybe_trace"),
     (f"{PKG}.utils.ply", "write_ply_with_labels"),
     (f"{PKG}.ops.dispatch", "use_pallas"),
+    (f"{PKG}.ops.dispatch", "linear_bn_maxpool"),
+    (f"{PKG}.ops.kernels.trunk_pool", "bn_maxpool_train"),
+    (f"{PKG}.data", "synthetic_shapenet"),
+    (f"{PKG}.utils.compile_cache", "enable_persistent_cache"),
+    (f"{PKG}.utils.device", "require_gpu"),
 ]
 
 

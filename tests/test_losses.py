@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu import losses
+from adversarial_learning_on_pointclouds import losses
 
 
 def test_nll_loss_hand_computed():

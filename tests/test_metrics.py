@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu.utils import metrics
+from adversarial_learning_on_pointclouds.utils import metrics
 
 
 def test_accuracy_and_class_accuracies():
@@ -45,7 +45,7 @@ def test_shape_iou_restricted_to_category_parts():
 def test_device_shape_iou_matches_numpy():
     rng = np.random.default_rng(0)
     cats = rng.integers(0, 16, size=8).astype(np.int32)
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         CATEGORY_PART_RANGES,
     )
     gt = np.empty((8, 64), np.int32)
@@ -75,11 +75,11 @@ def test_evaluate_device_matches_host_loop():
     padded+masked ragged final batch."""
     import jax
 
-    from adversarial_learning_on_pointclouds_tpu import eval as eval_lib
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds import eval as eval_lib
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         CATEGORY_PART_RANGES,
     )
-    from adversarial_learning_on_pointclouds_tpu.models import (
+    from adversarial_learning_on_pointclouds.models import (
         init_classifier, init_segmenter,
     )
 

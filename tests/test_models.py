@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu import losses
-from adversarial_learning_on_pointclouds_tpu.models import (
+from adversarial_learning_on_pointclouds import losses
+from adversarial_learning_on_pointclouds.models import (
     apply_classifier, apply_discriminator, apply_encoder, apply_segmenter,
     apply_tnet, init_classifier, init_discriminator, init_encoder,
     init_segmenter, init_tnet,
@@ -116,7 +116,7 @@ def test_batch_norm_variance_no_cancellation_after_warmup():
     of losing ~all fp32 bits to E[x^2]-E[x]^2 cancellation."""
     import jax.numpy as jnp
 
-    from adversarial_learning_on_pointclouds_tpu.models import core
+    from adversarial_learning_on_pointclouds.models import core
 
     rng = np.random.default_rng(0)
     x = (1000.0 + rng.standard_normal((16, 32, 8)) * 0.5).astype(np.float32)

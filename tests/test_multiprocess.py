@@ -3,8 +3,8 @@
 Everything else in the suite emulates 8 devices inside one process; this
 test spawns two REAL OS processes (4 CPU devices each) connected via
 ``jax.distributed`` (gRPC coordinator, Gloo collectives standing in for
-DCN) and runs the full adversarial G+D jitted step over the
-``('dcn', 'ici')`` mesh with per-process input feeding — asserting the
+the network between hosts) and runs the full adversarial G+D jitted step
+over the ``('host', 'local')`` mesh with per-process input feeding — asserting the
 distributed losses equal the single-device step at rel 1e-5 (the check
 itself lives in ``scripts/multihost_check.py``).
 """

@@ -1,7 +1,6 @@
 """``--paired_conv1``: per-point conv1 layers batched across the two
-adversarial streams with grouped per-stream BN1 statistics (round-5
-throughput candidate from the isolated 2B-stacking probe,
-``chiplogs_r04/perf_round4.log``).
+adversarial streams with grouped per-stream BN1 statistics (a
+throughput option; its GPU A/B is open in ROADMAP.md).
 
 Same test ladder as ``--paired_heads`` (test_round3.py): the paired path
 must be numerics-EXACT vs the sequential path for arbitrary distinct
@@ -29,7 +28,7 @@ def _adv_batch(seed=0):
 def test_batch_norm_grouped_3d_matches_sequential():
     """The 3D (per-point) grouped BN reduces over (batch, points) per
     group — exactly two sequential batch_norm calls with chained EMA."""
-    from adversarial_learning_on_pointclouds_tpu.models import core
+    from adversarial_learning_on_pointclouds.models import core
 
     rng = np.random.default_rng(3)
     x_a = jnp.asarray(rng.standard_normal((4, 16, 8)).astype(np.float32))
@@ -54,10 +53,10 @@ def test_batch_norm_grouped_3d_matches_sequential():
 def test_paired_conv1_distinct_streams_match_sequential():
     """Loss + conv1 running-stat parity paired_conv1 vs the paired-heads
     default, arbitrary distinct streams."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     x_l, y_l, x_u = _adv_batch()
     base = dict(num_parts=50, batch_size=B, num_points=N,
@@ -89,11 +88,11 @@ def test_paired_conv1_grads_match_sequential_no_pallas():
     """G-gradient parity on the jnp dispatch path (exercises the 3D
     grouped BN inside the full model backward); semi_on=0 kills the
     fp-sensitive threshold masks (same trick as the paired-heads test)."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.ops import dispatch
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.ops import dispatch
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     x_l, y_l, x_u = _adv_batch(seed=9)
     base = dict(num_parts=50, batch_size=B, num_points=N,
@@ -119,10 +118,10 @@ def test_paired_conv1_grads_match_sequential_no_pallas():
 def test_paired_conv1_step_trains():
     """Full jitted G+D step under --paired_conv1: finite metrics, loss
     matches the paired-heads step at fp-rounding level."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     x_l, y_l, x_u = _adv_batch(seed=5)
     base = dict(num_parts=50, batch_size=B, num_points=N,
@@ -140,7 +139,7 @@ def test_paired_conv1_step_trains():
 
 
 def test_paired_conv1_cli_requires_paired_heads():
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         adversarial_config_from_args,
     )
     base = ["--dataset", "x", "--paired_conv1"]

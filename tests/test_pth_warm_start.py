@@ -14,18 +14,18 @@ import jax
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     AdversarialConfig,
     ClassifyConfig,
     SegmentConfig,
 )
-from adversarial_learning_on_pointclouds_tpu.train import (
+from adversarial_learning_on_pointclouds.train import (
     adversarial,
     classify,
     runner,
     segment,
 )
-from adversarial_learning_on_pointclouds_tpu.utils import (
+from adversarial_learning_on_pointclouds.utils import (
     checkpoint,
     torch_export,
 )

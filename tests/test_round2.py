@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     AdversarialConfig, ClassifyConfig, SegmentConfig,
 )
-from adversarial_learning_on_pointclouds_tpu.data import augment, loader
-from adversarial_learning_on_pointclouds_tpu.ops import dispatch
-from adversarial_learning_on_pointclouds_tpu.train import (
+from adversarial_learning_on_pointclouds.data import augment, loader
+from adversarial_learning_on_pointclouds.ops import dispatch
+from adversarial_learning_on_pointclouds.train import (
     adversarial, classify,
 )
 
@@ -92,10 +92,10 @@ def test_segment_labels_ride_resample_gather():
 def test_runner_trains_on_full_resolution_with_device_resample(tmp_path):
     """End-to-end: runner feeds full-resolution (non-subsampled) clouds
     and the step resamples to cfg.num_points on device."""
-    from adversarial_learning_on_pointclouds_tpu.data.modelnet40 import (
+    from adversarial_learning_on_pointclouds.data.modelnet40 import (
         make_synthetic_modelnet_h5,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
     root = make_synthetic_modelnet_h5(str(tmp_path / "mn"), num_train=16,
                                       num_test=8, num_points=96)
     cfg = ClassifyConfig(dataset=root, num_points=48, batch_size=8,
@@ -178,10 +178,10 @@ def test_adversarial_scan_matches_single_steps():
 
 def test_run_adversarial_with_scan(tmp_path):
     """--scan K works through the full runner on real (synthetic) data."""
-    from adversarial_learning_on_pointclouds_tpu.data.shapenet_part import (
+    from adversarial_learning_on_pointclouds.data.shapenet_part import (
         make_synthetic_shapenet,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
     root = make_synthetic_shapenet(str(tmp_path / "sn"), num_shapes=64,
                                    num_points=N)
     cfg = AdversarialConfig(dataset=root, num_points=N, batch_size=8,
@@ -243,7 +243,7 @@ def test_lambda_adv_unl_loss_composition():
 def test_workers_controls_prefetch_depth(monkeypatch):
     """--workers N has an observable effect: it sets the loader's prefetch
     depth, and the runner's batch iteration consumes it."""
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
     assert runner._prefetch_depth(ClassifyConfig(workers=0)) == 2
     assert runner._prefetch_depth(ClassifyConfig(workers=7)) == 7
 
@@ -260,7 +260,7 @@ def test_workers_controls_prefetch_depth(monkeypatch):
     assert seen == [5]
 
     # CLI flag reaches the config
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         classify_config_from_args,
     )
     cfg = classify_config_from_args(["--workers", "6"])
@@ -275,7 +275,7 @@ def test_path_flags_keyed_into_jit_cache():
     """Toggling mixed_precision between calls of the SAME jitted step
     re-traces (different static paths) instead of silently reusing the
     previous path — bf16 and fp32 results must differ."""
-    from adversarial_learning_on_pointclouds_tpu.ops import mixed_precision
+    from adversarial_learning_on_pointclouds.ops import mixed_precision
     cfg = ClassifyConfig(num_classes=4, batch_size=B, num_points=N,
                          augment=False, normalize=False)
     tx = classify.make_tx(cfg, steps_per_epoch=1)
@@ -299,7 +299,7 @@ def test_hung_optimizer_schedule_options():
     and step; poly decays toward zero over total_steps."""
     import optax
 
-    from adversarial_learning_on_pointclouds_tpu.train import state as st
+    from adversarial_learning_on_pointclouds.train import state as st
     tx = st.make_optimizer(2.5e-4, 0.9, 0.999, 20, 0.5, 10,
                            optimizer="sgd", lr_schedule="poly",
                            total_steps=100, poly_power=0.9)

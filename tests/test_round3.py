@@ -1,5 +1,5 @@
 """Round-3 feature tests: AsyncSaver keep-up policy, PGD training surface,
-centered fc-head BN moments (ADVICE r2 #1), and the new CLI flags."""
+paired heads, fused epochs, grouped BN and the new CLI flags."""
 
 import time
 
@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     AdvPerturbConfig, adv_perturb_config_from_args,
     classify_config_from_args,
 )
-from adversarial_learning_on_pointclouds_tpu.train import adv_perturb
-from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+from adversarial_learning_on_pointclouds.train import adv_perturb
+from adversarial_learning_on_pointclouds.utils import checkpoint
 
 B, N = 8, 64
 
@@ -143,7 +143,7 @@ def test_pgd_multi_step_runs_and_differs():
 
 
 def test_pgd_perturbation_stays_in_linf_ball():
-    from adversarial_learning_on_pointclouds_tpu import attacks
+    from adversarial_learning_on_pointclouds import attacks
 
     pts, labels = _advp_batch()
     eps = 0.03
@@ -157,78 +157,6 @@ def test_pgd_perturbation_stays_in_linf_ball():
 
 
 # ---------------------------------------------------------------------------
-# Centered fc-head BN moments (ADVICE r2 #1)
-# ---------------------------------------------------------------------------
-
-def test_fc_head_centered_moments_beat_raw_on_offset_activations():
-    """With activations far from zero (|mean| >> std), centering the
-    one-pass moments about a tracking running mean keeps the batch
-    variance accurate where the raw E[x^2]-E[x]^2 form cancels
-    catastrophically — same guard core.batch_norm grew in round 2."""
-    from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
-        fc_head_train,
-    )
-
-    rng = np.random.default_rng(3)
-    Bx, C0, C1, C2, C3 = 8, 32, 16, 16, 9
-    # Inputs engineered so z1 = h@w1+b1 has mean ~300, std ~1.
-    h = jnp.asarray((10.0 + 0.05 * rng.standard_normal((Bx, C0)))
-                    .astype(np.float32))
-    w1 = jnp.asarray(np.full((C0, C1), 1.0, np.float32)
-                     + 0.01 * rng.standard_normal((C0, C1)).astype(np.float32))
-    b1 = jnp.zeros((C1,), jnp.float32)
-    g1 = jnp.ones((C1,), jnp.float32)
-    be1 = jnp.zeros((C1,), jnp.float32)
-    w2 = jnp.asarray(0.2 * rng.standard_normal((C1, C2)).astype(np.float32))
-    b2 = jnp.zeros((C2,), jnp.float32)
-    g2 = jnp.ones((C2,), jnp.float32)
-    be2 = jnp.zeros((C2,), jnp.float32)
-    w3 = jnp.asarray(0.2 * rng.standard_normal((C2, C3)).astype(np.float32))
-    b3 = jnp.zeros((C3,), jnp.float32)
-
-    # float64 ground truth for the layer-1 batch variance.
-    z1_64 = np.asarray(h, np.float64) @ np.asarray(w1, np.float64)
-    var_true = z1_64.var(axis=0)
-    rm1 = jnp.asarray(z1_64.mean(axis=0).astype(np.float32))
-
-    args = (h, w1, b1, g1, be1, w2, b2, g2, be2, w3, b3)
-    var_raw = np.asarray(fc_head_train.fc_head_train(*args)[2], np.float64)
-    var_ctr = np.asarray(
-        fc_head_train.fc_head_train(
-            *args, rm1=rm1, rm2=jnp.zeros((C2,), jnp.float32))[2],
-        np.float64)
-    err_raw = np.abs(var_raw - var_true) / var_true
-    err_ctr = np.abs(var_ctr - var_true) / var_true
-    assert err_ctr.max() < 1e-3, err_ctr.max()
-    assert err_ctr.max() < err_raw.max(), (err_ctr.max(), err_raw.max())
-
-
-def test_fc_head_rm_default_zero_unchanged():
-    """rm=None (zeros) is bitwise the old raw one-pass form — existing
-    parity baselines hold."""
-    from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
-        fc_head_train,
-    )
-
-    rng = np.random.default_rng(1)
-    Bx, C0, C1, C2, C3 = 8, 32, 16, 16, 4
-    args = (jnp.asarray(rng.standard_normal((Bx, C0)).astype(np.float32)),
-            jnp.asarray(rng.standard_normal((C0, C1)).astype(np.float32)),
-            jnp.zeros((C1,), jnp.float32), jnp.ones((C1,), jnp.float32),
-            jnp.zeros((C1,), jnp.float32),
-            jnp.asarray(rng.standard_normal((C1, C2)).astype(np.float32)),
-            jnp.zeros((C2,), jnp.float32), jnp.ones((C2,), jnp.float32),
-            jnp.zeros((C2,), jnp.float32),
-            jnp.asarray(rng.standard_normal((C2, C3)).astype(np.float32)),
-            jnp.zeros((C3,), jnp.float32))
-    a = fc_head_train.fc_head_train(*args)
-    b = fc_head_train.fc_head_train(*args, rm1=jnp.zeros((C1,), jnp.float32),
-                                    rm2=jnp.zeros((C2,), jnp.float32))
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
-# ---------------------------------------------------------------------------
 # --supervised_only ablation baseline (VERDICT r2 missing #3 / next #1)
 # ---------------------------------------------------------------------------
 
@@ -236,10 +164,10 @@ def test_supervised_only_step_freezes_d_and_drops_gan_terms():
     """--supervised_only: the step trains G with CE only — D params and
     optimizer state pass through untouched, adv/semi/D losses are zero,
     and loss_g == loss_ce."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     cfg = AdversarialConfig(num_parts=50, batch_size=B, num_points=N,
                             supervised_only=True, feature_transform=True)
@@ -270,15 +198,15 @@ def test_supervised_only_matches_segment_ce_loss():
     """The supervised-only G objective equals the plain segmentation CE
     (+ft reg) on the same batch — the ablation baseline IS config-3's
     loss on the labeled subset."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu import losses
-    from adversarial_learning_on_pointclouds_tpu.models import (
+    from adversarial_learning_on_pointclouds import losses
+    from adversarial_learning_on_pointclouds.models import (
         apply_segmenter,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
-    from adversarial_learning_on_pointclouds_tpu.train.classify import (
+    from adversarial_learning_on_pointclouds.train import adversarial
+    from adversarial_learning_on_pointclouds.train.classify import (
         FT_REG_WEIGHT,
     )
 
@@ -317,10 +245,10 @@ def test_paired_heads_distinct_streams_match_sequential():
     statistics with the EMA chained a -> b (core.batch_norm_grouped /
     the grouped epilogue kernel). Only fp-rounding (the BN centering
     constant of stream b) can differ; measured bitwise-equal here."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     x_l, y_l, x_u = _adv_batch()
     base = dict(num_parts=50, batch_size=B, num_points=N,
@@ -350,11 +278,11 @@ def test_paired_heads_distinct_streams_match_sequential():
 def test_paired_heads_grads_match_sequential_no_pallas():
     """G-gradient parity paired vs sequential on the jnp dispatch path
     (exercises core.batch_norm_grouped inside the full model backward)."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.ops import dispatch
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.ops import dispatch
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     x_l, y_l, x_u = _adv_batch(seed=9)
     # semi_on=0 kills the D-confidence threshold masks whose selections
@@ -390,10 +318,10 @@ def test_paired_heads_step_trains():
     """Full jitted G+D step under --paired_heads: runs, finite metrics,
     both nets update, and the distinct-stream loss matches the
     sequential step (per-stream grouped BN — fp-rounding-level only)."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     x_l, y_l, x_u = _adv_batch(seed=5)
     cfg = AdversarialConfig(num_parts=50, batch_size=B, num_points=N,
@@ -418,13 +346,13 @@ def test_paired_heads_step_trains():
 
 
 def test_paired_heads_no_pallas_path():
-    """The paired path also works on the pure-jnp dispatch (CPU CI runs
-    the Pallas kernels in interpreter mode; this pins the XLA fallback)."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    """The paired path also works with the kernel route switched off
+    (``--no_pallas``: pure-jnp dispatch everywhere)."""
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.ops import dispatch
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.ops import dispatch
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     x_l, y_l, x_u = _adv_batch(seed=6)
     cfg = AdversarialConfig(num_parts=50, batch_size=B, num_points=N,
@@ -447,10 +375,10 @@ def test_fused_epoch_matches_stepwise(tmp_path):
     reproduces the per-step path: same index streams, same RNG chain,
     same eval protocol — best mIoU and per-epoch metrics must agree to
     fp reordering tolerance."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     base = dict(labeled_ratio=0.5, batch_size=4, num_points=64,
                 epochs=2, ckpt_policy="none", quiet=True, num_devices=1,
@@ -469,10 +397,10 @@ def test_fused_epoch_single_net_matches_stepwise(tmp_path):
     """--fused_epoch on the single-network trainers (classification here;
     segmentation/adv-perturb share state_lib.epoch_program_fns) matches
     the per-step path."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         ClassifyConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     base = dict(batch_size=4, num_points=64, epochs=2, num_classes=4,
                 ckpt_policy="none", quiet=True, num_devices=1, seed=1)
@@ -485,10 +413,10 @@ def test_fused_epoch_single_net_matches_stepwise(tmp_path):
 
 
 def test_fused_epoch_rejects_host_data():
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     cfg = AdversarialConfig(fused_epoch=True, device_data=False,
                             batch_size=4, num_points=64, epochs=1)
@@ -500,169 +428,14 @@ def test_fused_epoch_rejects_host_data():
 
 
 # ---------------------------------------------------------------------------
-# --pallas_augment wiring (VERDICT r2 weak #2 / next #4)
+# Grouped BatchNorm (per-stream statistics of the paired heads)
 # ---------------------------------------------------------------------------
-
-def test_pallas_augment_chain_wired():
-    """chain_from_cfg routes through the fused Pallas augmentation pass
-    under cfg.pallas_augment: same shapes, labels ride the resample
-    gather, and the whole thing works inside a jitted train step. (CPU
-    interpreter stubs the on-core PRNG to zeros, so only structure is
-    asserted here; distribution parity is pinned by the TPU suite.)"""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        ClassifyConfig, SegmentConfig,
-    )
-    from adversarial_learning_on_pointclouds_tpu.data import augment
-    from adversarial_learning_on_pointclouds_tpu.train import classify
-
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal((B, 48, 3)).astype(np.float32))
-    y = jnp.asarray(rng.integers(0, 50, (B, 48)).astype(np.int32))
-    key = jax.random.PRNGKey(0)
-
-    cfg = SegmentConfig(num_points=32, augment=True, point_dropout=True,
-                        pallas_augment=True, batch_size=B)
-    pts, lab = augment.chain_from_cfg(key, cfg, x, y)
-    assert pts.shape == (B, 32, 3) and lab.shape == (B, 32)
-
-    ccfg = ClassifyConfig(num_classes=4, batch_size=B, num_points=48,
-                          augment=True, pallas_augment=True)
-    tx = classify.make_tx(ccfg, 1)
-    state = classify.create_state(ccfg, 1)
-    labels = jnp.asarray((np.arange(B) % 4).astype(np.int32))
-    s1, m = classify.train_step(state, x, labels, cfg=ccfg, tx=tx)
-    assert np.isfinite(float(m["loss"]))
-
-
-def test_pallas_augment_off_is_bitwise_default():
-    """pallas_augment=False (default) leaves the jnp chain untouched."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
-        ClassifyConfig,
-    )
-    from adversarial_learning_on_pointclouds_tpu.data import augment
-
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal((B, 48, 3)).astype(np.float32))
-    key = jax.random.PRNGKey(3)
-    a = augment.chain_from_cfg(
-        key, ClassifyConfig(num_points=32, augment=True), x)
-    b = augment.chain_from_cfg(
-        key, ClassifyConfig(num_points=32, augment=True,
-                            pallas_augment=False), x)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-# ---------------------------------------------------------------------------
-# pool_fc_epilogue kernel (VERDICT r2 next #2a — built for measurement)
-# ---------------------------------------------------------------------------
-
-def test_pool_fc_epilogue_parity():
-    """Fused pool-affine + ReLU + fc1 + batch-BN + ReLU kernel vs the
-    jnp composition: outputs, batch stats, and every gradient —
-    INCLUDING the gradients that flow through the batch statistics (the
-    round-3 wiring bug this guards against: normalizing with
-    stop-gradient kernel stats drops the BN stat-backward terms)."""
-    from adversarial_learning_on_pointclouds_tpu.models.core import BN_EPS
-    from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
-        pool_fc_epilogue,
-    )
-
-    rng = np.random.default_rng(2)
-    Bx, C3, C1 = 8, 64, 32
-    mx = jnp.asarray(rng.standard_normal((Bx, C3)).astype(np.float32) + 1.0)
-    mn = jnp.asarray(mx - np.abs(
-        rng.standard_normal((Bx, C3)).astype(np.float32)) - 0.1)
-    s3c = jnp.asarray(rng.standard_normal(C3).astype(np.float32))
-    t3 = jnp.asarray(0.1 * rng.standard_normal(C3).astype(np.float32))
-    w1 = jnp.asarray(0.2 * rng.standard_normal((C3, C1)).astype(np.float32))
-    b1 = jnp.asarray(0.1 * rng.standard_normal(C1).astype(np.float32))
-    g1 = jnp.asarray(rng.uniform(0.5, 1.5, C1).astype(np.float32))
-    be1 = jnp.asarray(0.1 * rng.standard_normal(C1).astype(np.float32))
-    args = (mx, mn, s3c, t3, w1, b1, g1, be1)
-
-    def ref(mx, mn, s3c, t3, w1, b1, g1, be1):
-        g = jnp.where(s3c >= 0, mx, mn) * s3c + t3
-        h = jnp.maximum(g, 0.0)
-        z1 = h @ w1 + b1
-        mu, var = z1.mean(0), z1.var(0)
-        h1 = jnp.maximum(
-            (z1 - mu) * jax.lax.rsqrt(var + BN_EPS) * g1 + be1, 0.0)
-        return h1, h, mu, var
-
-    h1, h, mu, var = pool_fc_epilogue.pool_fc_epilogue(*args)
-    r1, rh, rmu, rvar = ref(*args)
-    np.testing.assert_allclose(np.asarray(h1), np.asarray(r1), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(h), np.asarray(rh), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(mu), np.asarray(rmu), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(var), np.asarray(rvar),
-                               atol=1e-5)
-
-    def loss_k(*a):
-        h1, h, _, _ = pool_fc_epilogue.pool_fc_epilogue(*a)
-        return jnp.sum(jnp.sin(h1)) + jnp.sum(jnp.cos(h))
-
-    def loss_r(*a):
-        h1, h, _, _ = ref(*a)
-        return jnp.sum(jnp.sin(h1)) + jnp.sum(jnp.cos(h))
-
-    gk = jax.grad(loss_k, argnums=tuple(range(8)))(*args)
-    gr = jax.grad(loss_r, argnums=tuple(range(8)))(*args)
-    for a, b in zip(gk, gr):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=5e-5)
-
-
-def test_relu_fc_bn_relu_matches_layerwise_head_layer():
-    """The g-consuming wrapper equals core.batch_norm's fc1+BN+ReLU on a
-    non-negative pooled input — value AND gradients (batch-stat terms
-    included)."""
-    from adversarial_learning_on_pointclouds_tpu.models import core
-    from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
-        pool_fc_epilogue,
-    )
-
-    rng = np.random.default_rng(5)
-    Bx, C0, C1 = 8, 64, 32
-    # Raw (pre-ReLU) input: both paths apply relu(g) themselves, so the
-    # gradient masks agree everywhere except the measure-zero g == 0 set
-    # (exact zeros WOULD differ: jnp.maximum ties split 0.5, the kernel's
-    # h>0 mask gives 0 — irrelevant off ties, avoided here).
-    g = jnp.asarray(rng.standard_normal((Bx, C0)).astype(np.float32))
-    w1 = jnp.asarray(0.2 * rng.standard_normal((C0, C1)).astype(np.float32))
-    b1 = jnp.asarray(0.1 * rng.standard_normal(C1).astype(np.float32))
-    ga = jnp.asarray(rng.uniform(0.5, 1.5, C1).astype(np.float32))
-    be = jnp.asarray(0.1 * rng.standard_normal(C1).astype(np.float32))
-    bn_p = {"scale": ga, "bias": be}
-    bn_s = {"mean": jnp.asarray(0.1 * rng.standard_normal(C1)
-                                .astype(np.float32)),
-            "var": jnp.ones((C1,), jnp.float32)}
-
-    def ref(g, w1, b1):
-        z = core.matmul(jnp.maximum(g, 0.0), w1) + b1
-        y, _ = core.batch_norm(bn_p, bn_s, z, train=True)
-        return jnp.maximum(y, 0.0)
-
-    def ker(g, w1, b1):
-        h1, _, _ = pool_fc_epilogue.relu_fc_bn_relu(
-            g, w1, b1, ga, be, rm1=bn_s["mean"])
-        return h1
-
-    np.testing.assert_allclose(np.asarray(ker(g, w1, b1)),
-                               np.asarray(ref(g, w1, b1)), atol=1e-5)
-    gk = jax.grad(lambda *a: jnp.sum(jnp.sin(ker(*a))),
-                  argnums=(0, 1, 2))(g, w1, b1)
-    gr = jax.grad(lambda *a: jnp.sum(jnp.sin(ref(*a))),
-                  argnums=(0, 1, 2))(g, w1, b1)
-    for a, b in zip(gk, gr):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=5e-5)
-
 
 def test_batch_norm_grouped_matches_sequential():
     """batch_norm_grouped == two chained batch_norm calls on the row
     blocks: values, grads, and the chained EMA state (per-stream paired
     head semantics)."""
-    from adversarial_learning_on_pointclouds_tpu.models import core
+    from adversarial_learning_on_pointclouds.models import core
 
     rng = np.random.default_rng(11)
     G, Bx, C = 2, 8, 16
@@ -698,50 +471,6 @@ def test_batch_norm_grouped_matches_sequential():
     assert np.array_equal(np.asarray(y1), np.asarray(y0))
 
 
-def test_pool_fc_epilogue_grouped_matches_per_half():
-    """groups=2 epilogue kernel == two per-half kernel calls: h1 values,
-    per-group stats, and gradients (b1's grad is symbolically zero
-    through batch-BN, so it is excluded from the relative check)."""
-    from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
-        pool_fc_epilogue,
-    )
-
-    rng = np.random.default_rng(13)
-    Bx, C0, C1 = 8, 64, 32
-    g2 = jnp.asarray(rng.standard_normal((2 * Bx, C0)).astype(np.float32))
-    w1 = jnp.asarray(0.2 * rng.standard_normal((C0, C1)).astype(np.float32))
-    b1 = jnp.asarray(0.1 * rng.standard_normal(C1).astype(np.float32))
-    ga = jnp.asarray(rng.uniform(0.5, 1.5, C1).astype(np.float32))
-    be = jnp.asarray(0.1 * rng.standard_normal(C1).astype(np.float32))
-    rm = jnp.asarray(0.05 * rng.standard_normal(C1).astype(np.float32))
-    w = jnp.asarray(rng.standard_normal((2 * Bx, C1)).astype(np.float32))
-
-    def f_pair(g2, w1, ga, be):
-        h1, mu, var = pool_fc_epilogue.relu_fc_bn_relu(
-            g2, w1, b1, ga, be, rm1=rm, groups=2)
-        return (h1 * w).sum(), (mu, var)
-
-    def f_seq(g2, w1, ga, be):
-        h1a, mua, vara = pool_fc_epilogue.relu_fc_bn_relu(
-            g2[:Bx], w1, b1, ga, be, rm1=rm)
-        h1b, mub, varb = pool_fc_epilogue.relu_fc_bn_relu(
-            g2[Bx:], w1, b1, ga, be, rm1=rm)
-        return ((jnp.concatenate([h1a, h1b], 0) * w).sum(),
-                (jnp.stack([mua, mub]), jnp.stack([vara, varb])))
-
-    (vp, (mup, varp)), gp = jax.value_and_grad(
-        f_pair, argnums=(0, 1, 2, 3), has_aux=True)(g2, w1, ga, be)
-    (vs, (mus, vars_)), gs = jax.value_and_grad(
-        f_seq, argnums=(0, 1, 2, 3), has_aux=True)(g2, w1, ga, be)
-    assert float(vp) == pytest.approx(float(vs), rel=1e-6)
-    np.testing.assert_allclose(np.asarray(mup), np.asarray(mus), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(varp), np.asarray(vars_),
-                               atol=1e-6)
-    for a, b in zip(gp, gs):
-        scale = float(jnp.max(jnp.abs(b))) + 1e-12
-        assert float(jnp.max(jnp.abs(a - b))) / scale < 1e-5
-
-
 # ---------------------------------------------------------------------------
 # CLI flag surface
 # ---------------------------------------------------------------------------
@@ -762,7 +491,7 @@ def test_paired_heads_default_on_with_escape():
     sequential per-stream heads; both flags share one dest so the last
     one passed wins (ADVICE r3 — the full matrix is pinned in
     test_round4.test_paired_heads_flag_pair)."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         adversarial_config_from_args,
     )
     assert adversarial_config_from_args([]).paired_heads
@@ -773,15 +502,14 @@ def test_paired_heads_default_on_with_escape():
 
 
 def test_paired_heads_odd_batch_uses_xla_grouped_path():
-    """Per-stream batches that are not sublane multiples (b % 8 != 0)
-    must skip the grouped epilogue kernel (Mosaic slices z1 at row
-    offsets i*b) and still match the sequential path via the XLA
-    grouped-BN fallback — paired_heads is the DEFAULT, so odd
-    --batchSize values the sequential path accepted must keep working."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    """Per-stream batches that are not multiples of 8 (b % 8 != 0) match
+    the sequential path through the grouped-BN heads — paired_heads is
+    the DEFAULT, so odd --batchSize values the sequential path accepted
+    must keep working."""
+    from adversarial_learning_on_pointclouds.configs import (
         AdversarialConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
+    from adversarial_learning_on_pointclouds.train import adversarial
 
     b_odd = 12  # not a multiple of 8
     rng = np.random.default_rng(3)

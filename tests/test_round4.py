@@ -9,15 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu import eval as eval_lib
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds import eval as eval_lib
+from adversarial_learning_on_pointclouds.configs import (
     AdversarialConfig, adversarial_config_from_args,
 )
-from adversarial_learning_on_pointclouds_tpu.parallel import (
+from adversarial_learning_on_pointclouds.parallel import (
     make_mesh, point_sharded_eval,
 )
-from adversarial_learning_on_pointclouds_tpu.train import adversarial
-from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+from adversarial_learning_on_pointclouds.train import adversarial
+from adversarial_learning_on_pointclouds.utils import checkpoint
 
 B, N = 4, 64
 
@@ -66,7 +66,7 @@ def test_point_sharded_eval_explicit_per_point(mesh):
 # ---------------------------------------------------------------------------
 
 def test_eval_mask_coupling_check(monkeypatch):
-    from adversarial_learning_on_pointclouds_tpu.models import (
+    from adversarial_learning_on_pointclouds.models import (
         init_classifier,
     )
 
@@ -146,18 +146,6 @@ def test_paired_heads_flag_pair():
         base + ["--no_paired_heads", "--paired_heads"]).paired_heads is True
 
 
-def test_paired_trunks_requires_paired_heads():
-    """--paired_trunks only exists on the paired two-stream path; the CLI
-    must refuse the combinations that would silently measure the
-    sequential path under the flag (review r4 finding)."""
-    base = ["--dataset", "x", "--paired_trunks"]
-    assert adversarial_config_from_args(base).paired_trunks is True
-    with pytest.raises(SystemExit):
-        adversarial_config_from_args(base + ["--no_paired_heads"])
-    with pytest.raises(SystemExit):
-        adversarial_config_from_args(base + ["--fused_forward"])
-
-
 # ---------------------------------------------------------------------------
 # AsyncSaver sticky error is pinned in test_round3 (close() re-raises);
 # here: the success path must NOT trip the sticky check.
@@ -195,7 +183,7 @@ def test_async_saver_best_policy(tmp_path, monkeypatch):
 
 
 def test_async_saver_best_restore_latest_is_best(tmp_path):
-    """End-to-end through real orbax writes: under 'best', the newest
+    """End-to-end through real checkpoint writes: under 'best', the newest
     checkpoint dir is the best epoch and restore(step=None) loads it."""
     d = str(tmp_path / "best")
     with checkpoint.AsyncSaver(policy="best") as saver:
@@ -222,10 +210,10 @@ def test_eval_every_cadence_and_best_policy(tmp_path, monkeypatch):
     (eval) epochs."""
     import os
 
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         ClassifyConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     evals = []
     real = eval_lib.evaluate_classifier_device
@@ -254,7 +242,7 @@ def test_eval_every_cadence_and_best_policy(tmp_path, monkeypatch):
 
 
 def test_eval_every_rejects_fused_epoch():
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
 
     cfg = AdversarialConfig(fused_epoch=True, eval_every=2, batch_size=4,
                             num_points=64, epochs=1)
@@ -275,7 +263,7 @@ def test_eval_every_cli():
 def test_ablation_sweep_resumes_from_partial(tmp_path, monkeypatch):
     import json
 
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
     from scripts import ablation_adversarial_gain as abl
 
     calls = []
@@ -327,7 +315,7 @@ def test_ablation_seed_base_extension_and_pooled_digest(
     artifacts into one seed-paired table."""
     import json
 
-    from adversarial_learning_on_pointclouds_tpu.train import runner
+    from adversarial_learning_on_pointclouds.train import runner
     from scripts import ablation_adversarial_gain as abl
     from scripts import ablation_digest as dig
 
@@ -368,13 +356,13 @@ def test_point_sharded_train_step_matches_replicated(mesh):
     devices == the single-device step: loss tight, BN running stats at
     the fp reduction floor (post-Adam params are NOT compared — step-1
     normalization amplifies near-zero-grad noise to ±lr)."""
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         SegmentConfig,
     )
-    from adversarial_learning_on_pointclouds_tpu.parallel import (
+    from adversarial_learning_on_pointclouds.parallel import (
         point_sharded_train_step,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import segment
+    from adversarial_learning_on_pointclouds.train import segment
 
     # Batch 8, not 2: the fc-head BNs reduce over the batch axis, and
     # 2-sample batch statistics amplify fp reduction-order noise hugely
@@ -393,7 +381,7 @@ def test_point_sharded_train_step_matches_replicated(mesh):
     # fused-kernel path differs at fp-reassociation level, which the
     # batch-2 head BNs amplify — CLAUDE.md numerics note); remaining
     # delta is GSPMD partial-reduction order only.
-    from adversarial_learning_on_pointclouds_tpu.ops import dispatch
+    from adversarial_learning_on_pointclouds.ops import dispatch
 
     paths = (False, False, dispatch.current_paths()[2])
     ref_state, ref_m = segment._train_step(
@@ -417,143 +405,6 @@ def test_point_sharded_train_step_matches_replicated(mesh):
 
 
 # ---------------------------------------------------------------------------
-# Grouped fused trunk (--paired_trunks): per-stream stats, bitwise pools
-# ---------------------------------------------------------------------------
-
-def _trunk_args(seed=0):
-    rng = np.random.default_rng(seed)
-    C = 64
-    return tuple(jnp.asarray(a.astype(np.float32)) for a in (
-        rng.standard_normal((C, 128)) / 8,
-        0.1 * rng.standard_normal(128),
-        1 + 0.1 * rng.standard_normal(128),
-        0.1 * rng.standard_normal(128),
-        rng.standard_normal((128, 256)) / 11,
-        0.1 * rng.standard_normal(256),
-        1 + 0.1 * rng.standard_normal(256),
-        0.1 * rng.standard_normal(256)))
-
-
-def test_trunk2_grouped_matches_sequential():
-    """trunk2_train(groups=2) == two sequential calls: pooled outputs,
-    per-group statistics and dx BITWISE (identical per-cloud tiling —
-    grouping only re-routes the stat accumulators); weight grads at the
-    global-scale fp floor (one 2m-row reduction vs a sum of two m-row
-    reductions; near-zero BN-absorbed bias leaves are pure fp noise)."""
-    from adversarial_learning_on_pointclouds_tpu.ops.kernels import (
-        trunk_train as tt,
-    )
-
-    rng = np.random.default_rng(0)
-    Bt, Nt, C = 4, 128, 64
-    xa = jnp.asarray(rng.standard_normal((Bt, Nt, C)).astype(np.float32))
-    xb = jnp.asarray(rng.standard_normal((Bt, Nt, C)).astype(np.float32))
-    args = _trunk_args()
-
-    ga, mu2a, v2a, mu3a, v3a = tt.trunk2_train(xa, *args)
-    gb, mu2b, v2b, mu3b, v3b = tt.trunk2_train(xb, *args)
-    gg, mu2g, v2g, mu3g, v3g = tt.trunk2_train(
-        jnp.concatenate([xa, xb]), *args, groups=2)
-    np.testing.assert_array_equal(np.asarray(gg),
-                                  np.asarray(jnp.concatenate([ga, gb])))
-    np.testing.assert_array_equal(np.asarray(mu2g),
-                                  np.asarray(jnp.stack([mu2a, mu2b])))
-    np.testing.assert_array_equal(np.asarray(v3g),
-                                  np.asarray(jnp.stack([v3a, v3b])))
-
-    def loss_seq(a):
-        return (jnp.sum(tt.trunk2_train(xa, *a)[0] ** 2)
-                + jnp.sum(tt.trunk2_train(xb, *a)[0] ** 2))
-
-    def loss_grp(a):
-        return jnp.sum(tt.trunk2_train(jnp.concatenate([xa, xb]), *a,
-                                       groups=2)[0] ** 2)
-
-    gs = jax.grad(loss_seq)(args)
-    gp = jax.grad(loss_grp)(args)
-    scale = max(float(jnp.max(jnp.abs(l)))
-                for l in jax.tree_util.tree_leaves(gs))
-    for a, b in zip(jax.tree_util.tree_leaves(gs),
-                    jax.tree_util.tree_leaves(gp)):
-        assert float(jnp.max(jnp.abs(a - b))) <= 1e-5 * (1 + scale)
-
-    # dx is bitwise per stream.
-    dxs = jax.grad(lambda x: jnp.sum(
-        tt.trunk2_train(x, *args)[0] ** 2))(xa)
-    dxg = jax.grad(lambda x: jnp.sum(
-        tt.trunk2_train(x, *args, groups=2)[0] ** 2))(
-        jnp.concatenate([xa, xb]))
-    np.testing.assert_array_equal(np.asarray(dxg[:Bt]), np.asarray(dxs))
-
-
-def test_paired_trunks_step_matches_paired_heads():
-    """Full jitted G+D step with --paired_trunks UNDER use_pallas (the
-    grouped-trunk path gates on pallas_enabled; without the context both
-    configs run the identical sequential trace and the comparison is
-    vacuous — review r4 finding): finite metrics, params update, and the
-    G loss matches the paired-heads-only step (the grouped trunk is
-    bit-identical in values)."""
-    from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
-    from adversarial_learning_on_pointclouds_tpu.train import adversarial
-
-    rng = np.random.default_rng(11)
-    x_l = jnp.asarray(rng.standard_normal((B, 2 * N, 3)).astype(np.float32))
-    y_l = jnp.asarray(rng.integers(0, 50, (B, 2 * N)).astype(np.int32))
-    x_u = jnp.asarray(rng.standard_normal((B, 2 * N, 3)).astype(np.float32))
-
-    cfg = AdversarialConfig(num_parts=50, batch_size=B, num_points=2 * N,
-                            feature_transform=True, paired_heads=True,
-                            paired_trunks=True)
-    g_tx, d_tx = adversarial.make_txs(cfg, 1)
-    state = adversarial.create_state(cfg, 1)
-    with use_pallas():
-        new_state, m = adversarial.train_step(state, x_l, y_l, x_u,
-                                              cfg=cfg, g_tx=g_tx,
-                                              d_tx=d_tx)
-    for k, v in m.items():
-        assert np.isfinite(float(v)), k
-    changed = any(
-        not np.array_equal(np.asarray(a), np.asarray(b))
-        for a, b in zip(jax.tree_util.tree_leaves(state.g_params),
-                        jax.tree_util.tree_leaves(new_state.g_params)))
-    assert changed
-
-    cfg_ph = AdversarialConfig(num_parts=50, batch_size=B,
-                               num_points=2 * N, feature_transform=True,
-                               paired_heads=True, paired_trunks=False)
-    with use_pallas():
-        _, m_ph = adversarial.train_step(state, x_l, y_l, x_u, cfg=cfg_ph,
-                                         g_tx=g_tx, d_tx=d_tx)
-    assert float(m["loss_g"]) == pytest.approx(float(m_ph["loss_g"]),
-                                               rel=1e-5)
-
-
-# ---------------------------------------------------------------------------
-# bench.py backend wait: retries a wedged backend, bounded by the budget
-# ---------------------------------------------------------------------------
-
-def test_bench_backend_wait(monkeypatch):
-    import subprocess
-
-    import bench
-
-    # Healthy backend: returns without sleeping.
-    monkeypatch.setattr(subprocess, "run",
-                        lambda *a, **k: type("R", (), {"returncode": 0})())
-    bench._wait_for_backend(10.0, verbose=False)
-
-    # Wedged backend (probe subprocess hangs -> TimeoutExpired): bounded
-    # retry, then a clean non-zero exit instead of an in-process hang.
-    def hang(*a, **k):
-        raise subprocess.TimeoutExpired(cmd="probe", timeout=120)
-
-    monkeypatch.setattr(subprocess, "run", hang)
-    monkeypatch.setattr("time.sleep", lambda s: None)
-    with pytest.raises(SystemExit):
-        bench._wait_for_backend(0.05, verbose=False)
-
-
-# ---------------------------------------------------------------------------
 # Giant-cloud trainer CLI (point-sharded training end-to-end)
 # ---------------------------------------------------------------------------
 
@@ -571,7 +422,7 @@ def test_train_giant_cloud_script(tmp_path, monkeypatch):
         "2", "--nepoch", "1", "--outf", out])
     best = train_giant_cloud.main()
     assert np.isfinite(best) and 0.0 <= best <= 1.0
-    from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+    from adversarial_learning_on_pointclouds.utils import checkpoint
     assert checkpoint.latest_step(out) == 0
 
 
@@ -585,7 +436,7 @@ def test_package_version_matches_pyproject():
     import os
     import tomllib
 
-    import adversarial_learning_on_pointclouds_tpu as pkg
+    import adversarial_learning_on_pointclouds as pkg
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "pyproject.toml"), "rb") as f:
@@ -594,5 +445,5 @@ def test_package_version_matches_pyproject():
     # The native C++ source must be declared as package data, or an
     # installed wheel silently loses the fast .pts loader.
     assert os.path.exists(os.path.join(
-        root, "adversarial_learning_on_pointclouds_tpu", "native",
+        root, "adversarial_learning_on_pointclouds", "native",
         "pts_loader.cpp"))

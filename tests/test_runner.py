@@ -5,10 +5,10 @@ import os
 
 import numpy as np
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     AdversarialConfig, AdvPerturbConfig, ClassifyConfig, SegmentConfig,
 )
-from adversarial_learning_on_pointclouds_tpu.train import runner
+from adversarial_learning_on_pointclouds.train import runner
 
 
 def test_run_classification(modelnet_root, tmp_path):
@@ -169,11 +169,27 @@ def test_adv_perturb_device_data_matches_host_path(modelnet_root, tmp_path):
 
 
 def test_adv_perturb_pallas_eval_attack_path(modelnet_root, tmp_path):
-    """Regression: with use_pallas=True (the CLI default) the FGSM attack
-    differentiates through the eval-mode forward; the eval megakernels
-    have no custom VJP, so the attack section must force the XLA path
-    (adv_perturb._train_step_impl) instead of crashing in jvp of a raw
-    pallas_call."""
+    """Regression: with the kernel route on, the FGSM attack
+    differentiates through the eval-mode forward; the eval trunk-exit
+    kernel has no VJP, so the attack section must force the plain path
+    (adv_perturb._train_step_impl) instead of failing to differentiate
+    the kernel. Runs the kernel in interpret mode; the runner's own path
+    (use_pallas=True, the CLI default) runs too."""
+    import jax
+
+    from adversarial_learning_on_pointclouds.ops import use_pallas
+    from adversarial_learning_on_pointclouds.train import adv_perturb
+
+    cfg = AdvPerturbConfig(batch_size=4, num_points=64, epsilon=0.05)
+    tx = adv_perturb.make_tx(cfg, 1)
+    state = adv_perturb.create_state(cfg, 1)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 64, 3)).astype(np.float32)
+    y = rng.integers(0, 40, 4).astype(np.int32)
+    with use_pallas(interpret=True):
+        _, m = adv_perturb.train_step(state, x, y, cfg=cfg, tx=tx)
+    assert all(np.isfinite(float(v)) for v in jax.tree_util.tree_leaves(m))
+
     cfg = AdvPerturbConfig(batch_size=8, num_points=64, epochs=1,
                            out_dir=str(tmp_path / "advp_pallas"),
                            dataset=modelnet_root, use_pallas=True,

@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu import losses
-from adversarial_learning_on_pointclouds_tpu.configs import AdversarialConfig
-from adversarial_learning_on_pointclouds_tpu.train import adversarial
+from adversarial_learning_on_pointclouds import losses
+from adversarial_learning_on_pointclouds.configs import AdversarialConfig
+from adversarial_learning_on_pointclouds.train import adversarial
 
 B, N, P = 8, 64, 6
 
@@ -113,7 +113,7 @@ def test_self_training_excludes_supervised_only():
 
 
 def test_cli_flag_roundtrip():
-    from adversarial_learning_on_pointclouds_tpu import configs
+    from adversarial_learning_on_pointclouds import configs
 
     cfg = configs.adversarial_config_from_args(
         ["--dataset", "x", "--self_training"])

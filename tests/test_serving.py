@@ -16,13 +16,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     ClassifyConfig, SegmentConfig,
 )
-from adversarial_learning_on_pointclouds_tpu.models import classifier, segmenter
-from adversarial_learning_on_pointclouds_tpu.ops import use_pallas
-from adversarial_learning_on_pointclouds_tpu.train import classify, segment
-from adversarial_learning_on_pointclouds_tpu.utils import serving
+from adversarial_learning_on_pointclouds.models import classifier, segmenter
+from adversarial_learning_on_pointclouds.ops import use_pallas
+from adversarial_learning_on_pointclouds.train import classify, segment
+from adversarial_learning_on_pointclouds.utils import serving
 
 N = 64
 
@@ -93,11 +93,11 @@ def test_segmenter_export_round_trip(tmp_path):
 
 
 def test_export_forces_xla_path_even_with_pallas_on(tmp_path):
-    # The exporting process may have Pallas dispatch enabled; the
-    # artifact must still be the portable XLA lowering (Mosaic custom
-    # calls would refuse the cpu platform / pin the TPU generation).
+    # The exporting process may have the kernel route enabled; the
+    # artifact must still be the portable XLA lowering (a kernel's custom
+    # call would pin the artifact to one backend).
     state = _cls_state()
-    with use_pallas(True):
+    with use_pallas(True, interpret=True):
         exp = serving.export_classifier(state.params, state.bn_state, N,
                                         platforms=("cpu",))
     x = np.random.default_rng(2).standard_normal((2, N, 3)).astype(
@@ -112,7 +112,7 @@ def test_export_forces_xla_path_even_with_pallas_on(tmp_path):
 def test_export_serving_cli(tmp_path, monkeypatch):
     # Full CLI path: train-state checkpoint on disk -> artifact ->
     # --verify (deserialize + compare vs live model) asserts internally.
-    from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+    from adversarial_learning_on_pointclouds.utils import checkpoint
     from scripts import export_serving
 
     state = _cls_state()
@@ -134,9 +134,9 @@ def test_infer_cli_artifact_and_checkpoint(tmp_path, monkeypatch, capsys):
     # live checkpoint -> infer over an .h5 batch (cls).
     import h5py
 
-    from adversarial_learning_on_pointclouds_tpu.configs import SegmentConfig
-    from adversarial_learning_on_pointclouds_tpu.train import segment
-    from adversarial_learning_on_pointclouds_tpu.utils import checkpoint
+    from adversarial_learning_on_pointclouds.configs import SegmentConfig
+    from adversarial_learning_on_pointclouds.train import segment
+    from adversarial_learning_on_pointclouds.utils import checkpoint
     from scripts import infer
 
     rng = np.random.default_rng(0)
@@ -199,7 +199,7 @@ def test_export_precision_is_pinned_not_ambient(tmp_path):
     # Exporting from inside a bf16 mixed-precision scope must still
     # produce the fp32-HIGHEST artifact (parity mode); bf16 artifacts
     # are an explicit opt-in and land within bf16 tolerance.
-    from adversarial_learning_on_pointclouds_tpu.models.core import (
+    from adversarial_learning_on_pointclouds.models.core import (
         mixed_precision,
     )
 
@@ -223,45 +223,13 @@ def test_export_precision_is_pinned_not_ambient(tmp_path):
     np.testing.assert_allclose(got16, want, rtol=0, atol=0.15)
 
 
-# ---------------------------------------------------------------------------
-# TPU-pinned Pallas artifact (use_pallas_kernels) — structural CPU checks;
-# on-chip execution parity lives in tests/test_tpu_kernels.py.
-# ---------------------------------------------------------------------------
-
-def test_pallas_export_emits_mosaic_and_serializes():
-    """Exporting with use_pallas_kernels=True from this CPU host must
-    force the REAL Mosaic lowering (kernels otherwise drop to
-    interpreter mode on cpu backends and would silently bake the
-    emulation graph in) and still serialize under jax.export's default
-    custom-call safety checks (tpu_custom_call is allowlisted)."""
-    st = _cls_state()
-    art = serving.export_classifier(st.params, st.bn_state, N,
-                                    platforms=("tpu",),
-                                    use_pallas_kernels=True)
-    assert art.mlir_module().count("tpu_custom_call") > 0
-    blob = art.serialize()
-    assert len(blob) > 0
-    # The default multi-platform export stays pure StableHLO.
-    portable = serving.export_classifier(st.params, st.bn_state, N)
-    assert "tpu_custom_call" not in portable.mlir_module()
-
-
-def test_pallas_export_requires_tpu_only_platforms():
-    st = _cls_state()
-    with pytest.raises(ValueError, match="platforms"):
-        serving.export_classifier(st.params, st.bn_state, N,
-                                  platforms=("cpu", "tpu"),
-                                  use_pallas_kernels=True)
-
-
-def test_export_serving_cli_pallas_guard(tmp_path, monkeypatch):
-    """--pallas without --platforms tpu is a CLI error (SystemExit 2)."""
-    import sys
-
-    from scripts import export_serving
-
-    monkeypatch.setattr(sys, "argv", [
-        "export_serving.py", "--model", "cls", "--checkpoint", "x",
-        "--out", str(tmp_path / "a.shlo"), "--pallas"])
-    with pytest.raises(SystemExit):
-        export_serving.main()
+def test_default_export_lowers_for_cpu_and_cuda():
+    """The default artifact targets the CPU and the GPU (no kernel custom
+    call) and runs on the CPU it was exported from."""
+    assert serving.DEFAULT_PLATFORMS == ("cpu", "cuda")
+    state = _cls_state()
+    exp = serving.export_classifier(state.params, state.bn_state, N)
+    assert tuple(exp.platforms) == ("cpu", "cuda")
+    assert "triton" not in exp.mlir_module()
+    x = np.zeros((2, N, 3), np.float32)
+    assert np.asarray(exp.call(x)).shape == (2, 7)

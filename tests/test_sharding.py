@@ -13,16 +13,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     AdversarialConfig, ClassifyConfig,
 )
-from adversarial_learning_on_pointclouds_tpu.parallel import (
+from adversarial_learning_on_pointclouds.parallel import (
     batch_sharding, make_mesh, shard_batch,
 )
-from adversarial_learning_on_pointclouds_tpu.parallel.mesh import (
+from adversarial_learning_on_pointclouds.parallel.mesh import (
     replicate_tree, replicated,
 )
-from adversarial_learning_on_pointclouds_tpu.train import adversarial, classify
+from adversarial_learning_on_pointclouds.train import adversarial, classify
 
 B, N = 16, 64
 
@@ -233,18 +233,18 @@ def test_adversarial_dp_full_step_runs_sharded(mesh):
 def test_multihost_mesh_dp_equivalence(mesh):
     """Simulated 2-host x 4-chip slice (ROADMAP #6, SURVEY.md §2.8).
 
-    The ``('dcn', 'ici')`` mesh shards the batch over BOTH axes; the
-    hierarchical allreduce (intra-host ICI, inter-host DCN) the SPMD
+    The ``('host', 'local')`` mesh shards the batch over BOTH axes; the
+    hierarchical all-reduce (inside a host, then across hosts) the SPMD
     partitioner emits must reproduce the single-device step's loss and
     global-batch BN statistics — no code change vs the 1-D mesh, mesh +
     PartitionSpec only.
     """
-    from adversarial_learning_on_pointclouds_tpu.parallel import (
+    from adversarial_learning_on_pointclouds.parallel import (
         make_multihost_mesh,
     )
 
     mh = make_multihost_mesh(num_hosts=2, chips_per_host=4)
-    assert mh.shape["dcn"] == 2 and mh.shape["ici"] == 4
+    assert mh.shape["host"] == 2 and mh.shape["local"] == 4
 
     cfg = ClassifyConfig(num_classes=4, batch_size=B, num_points=N)
     tx = classify.make_tx(cfg, 1)
@@ -267,10 +267,10 @@ def test_multihost_mesh_dp_equivalence(mesh):
 def test_multihost_adversarial_step_runs(mesh):
     """Full G+D jitted step on the simulated 2x4 multi-host mesh: executes,
     metrics finite, params stay replicated across all 8 devices."""
-    from adversarial_learning_on_pointclouds_tpu.parallel import (
+    from adversarial_learning_on_pointclouds.parallel import (
         make_multihost_mesh,
     )
-    from adversarial_learning_on_pointclouds_tpu.parallel.mesh import (
+    from adversarial_learning_on_pointclouds.parallel.mesh import (
         shard_batch as _shard,
     )
 
@@ -304,7 +304,7 @@ def test_point_axis_sharding(mesh):
     """
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from adversarial_learning_on_pointclouds_tpu.models import (
+    from adversarial_learning_on_pointclouds.models import (
         apply_encoder, init_encoder,
     )
 
@@ -325,7 +325,7 @@ def test_adversarial_fused_epoch_program_dp(mesh):
     steps ride post-Adam trajectories where reduction-order noise
     amplifies by construction, see module docstring) and produces the
     eval reductions at the right shapes."""
-    from adversarial_learning_on_pointclouds_tpu.data import loader
+    from adversarial_learning_on_pointclouds.data import loader
 
     cfg = AdversarialConfig(num_parts=6, batch_size=B, num_points=N,
                             feature_transform=False, augment=False,
@@ -378,19 +378,19 @@ def test_point_sharded_eval_full_models(mesh):
     8 devices match the replicated forward — T-Net pools, the global
     feature broadcast into the seg head, and per-point outputs all ride
     GSPMD-inserted collectives."""
-    from adversarial_learning_on_pointclouds_tpu.models.classifier import (
+    from adversarial_learning_on_pointclouds.models.classifier import (
         apply_classifier,
     )
-    from adversarial_learning_on_pointclouds_tpu.models.segmenter import (
+    from adversarial_learning_on_pointclouds.models.segmenter import (
         apply_segmenter,
     )
-    from adversarial_learning_on_pointclouds_tpu.parallel import (
+    from adversarial_learning_on_pointclouds.parallel import (
         point_sharded_eval,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import (
+    from adversarial_learning_on_pointclouds.train import (
         classify as _c, segment as _s,
     )
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.configs import (
         SegmentConfig,
     )
 
@@ -421,14 +421,14 @@ def test_point_sharded_eval_indivisible_n(mesh):
     outputs back — exact, because duplicating an existing point cannot
     change a max-pool. Regression: this used to crash in device_put
     ('dimension 1 should be divisible by 8')."""
-    from adversarial_learning_on_pointclouds_tpu.models.segmenter import (
+    from adversarial_learning_on_pointclouds.models.segmenter import (
         apply_segmenter,
     )
-    from adversarial_learning_on_pointclouds_tpu.parallel import (
+    from adversarial_learning_on_pointclouds.parallel import (
         point_sharded_eval,
     )
-    from adversarial_learning_on_pointclouds_tpu.train import segment as _s
-    from adversarial_learning_on_pointclouds_tpu.configs import (
+    from adversarial_learning_on_pointclouds.train import segment as _s
+    from adversarial_learning_on_pointclouds.configs import (
         SegmentConfig,
     )
 
@@ -447,7 +447,21 @@ def test_point_sharded_eval_indivisible_n(mesh):
 
 
 def _cls_state_for_point_shard():
-    from adversarial_learning_on_pointclouds_tpu.train import classify
+    from adversarial_learning_on_pointclouds.train import classify
     return classify.create_state(
         ClassifyConfig(num_classes=5, num_points=8 * N,
                        feature_transform=True), 1)
+
+
+def test_multihost_mesh_axes_are_host_major():
+    """Host-major ``('host', 'local')`` axes; a batch shards over both."""
+    from adversarial_learning_on_pointclouds.parallel import (
+        make_multihost_mesh,
+    )
+    from adversarial_learning_on_pointclouds.parallel.mesh import data_axes
+
+    mh = make_multihost_mesh(num_hosts=2, chips_per_host=4)
+    assert mh.axis_names == ("host", "local")
+    assert data_axes(mh) == ("host", "local")
+    assert data_axes(make_mesh(4)) == "data"
+    assert batch_sharding(mh, 3).spec[0] == ("host", "local")

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from adversarial_learning_on_pointclouds_tpu.models import (
+from adversarial_learning_on_pointclouds.models import (
     apply_classifier, apply_discriminator, apply_segmenter,
 )
-from adversarial_learning_on_pointclouds_tpu.utils import torch_import
+from adversarial_learning_on_pointclouds.utils import torch_import
 from tests import torch_ref
 
 B, N = 2, 64
@@ -69,10 +69,10 @@ def test_classifier_pth_export_strict_load(tmp_path):
     reproduces our logits — the migration path back to the reference."""
     import jax
 
-    from adversarial_learning_on_pointclouds_tpu.models import (
+    from adversarial_learning_on_pointclouds.models import (
         init_classifier,
     )
-    from adversarial_learning_on_pointclouds_tpu.utils import torch_export
+    from adversarial_learning_on_pointclouds.utils import torch_export
 
     params, state = init_classifier(jax.random.PRNGKey(3), 40,
                                     feature_transform=True)
@@ -94,10 +94,10 @@ def test_segmenter_discriminator_export_import_roundtrip(tmp_path):
     """Export -> import closes bit-exactly for the segmenter and D."""
     import jax
 
-    from adversarial_learning_on_pointclouds_tpu.models import (
+    from adversarial_learning_on_pointclouds.models import (
         init_discriminator, init_segmenter,
     )
-    from adversarial_learning_on_pointclouds_tpu.utils import torch_export
+    from adversarial_learning_on_pointclouds.utils import torch_export
 
     sp, ss = init_segmenter(jax.random.PRNGKey(4), 50,
                             feature_transform=True)

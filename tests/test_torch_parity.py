@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from adversarial_learning_on_pointclouds_tpu.models import (
+from adversarial_learning_on_pointclouds.models import (
     apply_classifier, apply_discriminator, apply_segmenter, apply_tnet,
     core, init_classifier, init_discriminator, init_segmenter, init_tnet,
 )
@@ -117,7 +117,7 @@ def test_nll_matches_torch():
     logp = np.log(np.random.default_rng(0).dirichlet(
         np.ones(5), size=(B,)).astype(np.float32))
     labels = np.array([0, 2, 4, 1])
-    from adversarial_learning_on_pointclouds_tpu import losses
+    from adversarial_learning_on_pointclouds import losses
     v_jax = float(losses.nll_loss(jnp.asarray(logp), jnp.asarray(labels)))
     v_t = float(torch.nn.functional.nll_loss(
         torch.from_numpy(logp), torch.from_numpy(labels)))
@@ -125,7 +125,7 @@ def test_nll_matches_torch():
 
 
 def test_bce_matches_torch():
-    from adversarial_learning_on_pointclouds_tpu import losses
+    from adversarial_learning_on_pointclouds import losses
     z = np.random.default_rng(0).standard_normal((B, N)).astype(np.float32)
     for target in (0.0, 1.0):
         v_jax = float(losses.bce_with_logits(jnp.asarray(z), target))

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from adversarial_learning_on_pointclouds_tpu.configs import (
+from adversarial_learning_on_pointclouds.configs import (
     AdversarialConfig, AdvPerturbConfig, ClassifyConfig, SegmentConfig,
 )
-from adversarial_learning_on_pointclouds_tpu.train import (
+from adversarial_learning_on_pointclouds.train import (
     adv_perturb, adversarial, classify, segment,
 )
 
@@ -145,8 +145,8 @@ def test_fgsm_perturb_step():
 
 
 def test_fgsm_attack_moves_points_by_epsilon():
-    from adversarial_learning_on_pointclouds_tpu import attacks, losses
-    from adversarial_learning_on_pointclouds_tpu.models import (
+    from adversarial_learning_on_pointclouds import attacks, losses
+    from adversarial_learning_on_pointclouds.models import (
         apply_classifier, init_classifier,
     )
     params, bn = init_classifier(jax.random.PRNGKey(0), 4)

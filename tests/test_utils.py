@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adversarial_learning_on_pointclouds_tpu import attacks, configs
-from adversarial_learning_on_pointclouds_tpu.utils import ply
-from adversarial_learning_on_pointclouds_tpu.utils.logging import MetricLogger
-from adversarial_learning_on_pointclouds_tpu.utils.profiling import debug_nans
+from adversarial_learning_on_pointclouds import attacks, configs
+from adversarial_learning_on_pointclouds.utils import ply
+from adversarial_learning_on_pointclouds.utils.logging import MetricLogger
+from adversarial_learning_on_pointclouds.utils.profiling import debug_nans
 
 
 def test_ply_roundtrip(tmp_path):
@@ -127,7 +127,7 @@ def test_synthetic_modelnet_schema(tmp_path):
     """Fixture files carry the exact documented real-dataset schema."""
     import h5py
 
-    from adversarial_learning_on_pointclouds_tpu.data.modelnet40 import (
+    from adversarial_learning_on_pointclouds.data.modelnet40 import (
         make_synthetic_modelnet_h5,
     )
     root = make_synthetic_modelnet_h5(str(tmp_path), 8, 4, 128)
@@ -154,71 +154,6 @@ def test_render_cloud_script(shapenet_root, tmp_path):
         env=env, capture_output=True, timeout=300)
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     assert os.path.getsize(out) > 5000
-
-
-def test_tpu_watchdog_logic(tmp_path):
-    """scripts/tpu_watchdog.py pure logic: pgid-file parsing tolerates
-    comments/garbage, the probe treats hangs (TimeoutExpired) and fast
-    errors as wedged, and the agenda runner continues past a failed
-    stage by default but honors --stop_on_fail."""
-    import subprocess
-
-    from scripts import tpu_watchdog as wd
-
-    pg = tmp_path / "groups"
-    pg.write_text("123\n# comment\n  456  # trailing\n\nnot-a-pid\n")
-    assert wd.read_pgids(str(pg)) == [123, 456]
-    assert wd.read_pgids(str(tmp_path / "missing")) == []
-    assert wd.read_pgids(None) == []
-
-    ok = type("R", (), {"returncode": 0})()
-    bad = type("R", (), {"returncode": 1})()
-    assert wd.probe_backend(runner=lambda *a, **k: ok)
-    assert not wd.probe_backend(runner=lambda *a, **k: bad)
-
-    def hang(*a, **k):
-        raise subprocess.TimeoutExpired(cmd="probe", timeout=1)
-
-    assert not wd.probe_backend(runner=hang)
-
-    lines = []
-    failed = wd.run_agenda(["false", "true", "true"], cmd_timeout=30,
-                           stop_on_fail=False, log=lines.append,
-                           probe=lambda: True)
-    assert failed == 1 and "stage 3" in "".join(lines)
-    assert "re-probing" in "".join(lines)  # any failure re-probes
-    lines = []
-    failed = wd.run_agenda(["false", "true"], cmd_timeout=30,
-                           stop_on_fail=True, log=lines.append,
-                           probe=lambda: True)
-    assert failed == 1 and "stage 2" not in "".join(lines)
-
-    # A timed-out stage kills its whole PROCESS GROUP (the sleep child
-    # of the shell, not just the shell) and the next stage waits for a
-    # fresh backend probe before launching.
-    probes = []
-
-    def fake_probe():
-        probes.append(1)
-        return len(probes) >= 2
-
-    lines = []
-    failed = wd.run_agenda(["sleep 30", "true"], cmd_timeout=0.5,
-                           stop_on_fail=False, log=lines.append,
-                           probe=fake_probe, probe_wait_s=30,
-                           probe_interval=0.01)
-    out = "".join(lines)
-    assert failed == 1 and "TIMED OUT" in out and "re-probing" in out
-    assert len(probes) == 2 and "stage 2 rc=0" in out
-
-    # Backend never recovers -> remaining stages counted failed, agenda
-    # aborts instead of burning each stage's timeout.
-    lines = []
-    failed = wd.run_agenda(["sleep 30", "true", "true"], cmd_timeout=0.5,
-                           stop_on_fail=False, log=lines.append,
-                           probe=lambda: False, probe_wait_s=0.05,
-                           probe_interval=0.01)
-    assert failed == 3 and "did not recover" in "".join(lines)
 
 
 def test_metric_logger_epoch_csv(tmp_path):
